@@ -1,0 +1,247 @@
+"""Binned-SAH BVH: host build (native C++ or numpy) + tensors on a device.
+
+PyTorch counterpart of ``messyerraytracer_tpu/accel/bvh.py``; the same
+documented semantics:
+
+  * binned SAH, 12 candidate split planes per axis   (BVH_BINS = 12)
+  * MAX_LEAF_SIZE = 4 triangles
+  * DFS-ordered node array: left child is implicitly ``node + 1``;
+    internal nodes store the *right* child index in ``left_first``
+  * leaf nodes: ``left_first`` = first triangle slot, ``count`` > 0
+
+The build runs on the host; ``BVH.host`` keeps the numpy arrays (every
+build-time consumer reads those) and the tensor fields hold copies on the
+chosen device.  ``refit_bvh`` waits for the refit slice (ROADMAP A.2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+
+import numpy as np
+import torch
+
+BVH_BINS = 12
+MAX_LEAF_SIZE = 4
+
+
+@dataclasses.dataclass
+class BVH:
+    """SoA BVH node arrays.
+
+    aabb_min / aabb_max: (M, 3) float32
+    left_first:          (M,)   int32 — internal: right child; leaf: first slot
+    count:               (M,)   int32 — 0 for internal nodes
+    tri_order:           (N,)   int32 — tri slot -> original triangle index
+    split_axis:          (M,)   int32 — SAH split axis per internal node
+    host:                dict of the same arrays in numpy
+    """
+
+    aabb_min: torch.Tensor
+    aabb_max: torch.Tensor
+    left_first: torch.Tensor
+    count: torch.Tensor
+    tri_order: torch.Tensor
+    split_axis: torch.Tensor
+    host: dict
+
+    @property
+    def num_nodes(self) -> int:
+        return self.aabb_min.shape[0]
+
+    @property
+    def num_tris(self) -> int:
+        return self.tri_order.shape[0]
+
+
+def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+              use_native: bool = True, device="cpu") -> BVH:
+    """Build a binned-SAH BVH over triangles given by vertex arrays (N,3).
+
+    The caller applies ``tri_order`` to its triangle SoA so leaf ranges
+    are contiguous."""
+    v0 = np.asarray(v0, np.float32)
+    v1 = np.asarray(v1, np.float32)
+    v2 = np.asarray(v2, np.float32)
+    if use_native:
+        from ..native import native_build_bvh
+
+        res = native_build_bvh(v0, v1, v2)
+        if res is not None:
+            return _finalize_bvh(*res[:7], device=device)
+    tri_min = np.minimum(np.minimum(v0, v1), v2)
+    tri_max = np.maximum(np.maximum(v0, v1), v2)
+    centroid = (v0 + v1 + v2) * (1.0 / 3.0)
+    # as in the JAX package, this still tries the native AABB builder
+    return build_bvh_over_aabbs(tri_min, tri_max, centroid, device=device)
+
+
+def _finalize_bvh(node_min, node_max, left_first, count, depth, axis,
+                  order, device="cpu") -> BVH:
+    del depth  # per-level lists serve the refit, which waits (ROADMAP A.2)
+    host = {
+        "aabb_min": node_min.astype(np.float32),
+        "aabb_max": node_max.astype(np.float32),
+        "left_first": left_first.astype(np.int32),
+        "count": count.astype(np.int32),
+        "tri_order": order.astype(np.int32),
+        "split_axis": axis.astype(np.int32),
+    }
+    put = lambda k: torch.as_tensor(host[k], device=device)  # noqa: E731
+    return BVH(aabb_min=put("aabb_min"), aabb_max=put("aabb_max"),
+               left_first=put("left_first"), count=put("count"),
+               tri_order=put("tri_order"), split_axis=put("split_axis"),
+               host=host)
+
+
+def build_bvh_over_aabbs(tri_min, tri_max, centroid,
+                         max_leaf_size: int = MAX_LEAF_SIZE,
+                         use_native: bool = True, device="cpu") -> BVH:
+    """Binned-SAH build over arbitrary primitive AABBs + centroids (the
+    cluster-TLAS pair tree uses ``max_leaf_size=1``).
+
+    Routes through the native builder when available; the numpy body
+    below is the readable specification and the no-compiler fallback.
+    """
+    tri_min = np.asarray(tri_min, np.float32)
+    tri_max = np.asarray(tri_max, np.float32)
+    centroid = np.asarray(centroid, np.float32)
+    n = tri_min.shape[0]
+    if n == 0:
+        raise ValueError("build_bvh: cannot build over 0 primitives")
+
+    if use_native:
+        from ..native import native_build_bvh_aabbs
+
+        res = native_build_bvh_aabbs(tri_min, tri_max, centroid,
+                                     max_leaf_size)
+        if res is not None:
+            return _finalize_bvh(*res[:7], device=device)
+
+    order = np.arange(n, dtype=np.int32)  # tri slots -> original index
+
+    max_nodes = max(2 * n - 1, 1)
+    node_min = np.empty((max_nodes, 3), np.float32)
+    node_max = np.empty((max_nodes, 3), np.float32)
+    left_first = np.zeros(max_nodes, np.int32)
+    count = np.zeros(max_nodes, np.int32)
+    depth_arr = np.zeros(max_nodes, np.int32)
+    axis_arr = np.zeros(max_nodes, np.int32)
+    num_nodes = 0
+
+    def surface_area(bmin, bmax):
+        d = np.maximum(bmax - bmin, 0.0)
+        return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                      + d[..., 2] * d[..., 0])
+
+    def emit(start, end, depth):
+        """Emit the subtree over tri slots [start, end) in DFS order."""
+        nonlocal num_nodes
+        node = num_nodes
+        num_nodes += 1
+        idx = order[start:end]
+        bmin = tri_min[idx].min(axis=0)
+        bmax = tri_max[idx].max(axis=0)
+        node_min[node] = bmin
+        node_max[node] = bmax
+        depth_arr[node] = depth
+        cnt = end - start
+
+        if cnt <= max_leaf_size:
+            left_first[node] = start
+            count[node] = cnt
+            return node
+
+        cent = centroid[idx]
+        cmin = cent.min(axis=0)
+        cmax = cent.max(axis=0)
+        extent = cmax - cmin
+        best_cost = np.inf
+        best_axis = -1
+        best_bin = -1
+
+        for axis in range(3):
+            if extent[axis] <= 1e-12:
+                continue
+            scale = BVH_BINS / extent[axis]
+            bins = np.minimum(
+                ((cent[:, axis] - cmin[axis]) * scale).astype(np.int32),
+                BVH_BINS - 1,
+            )
+            bin_counts = np.bincount(bins, minlength=BVH_BINS)
+            bin_min = np.full((BVH_BINS, 3), np.inf, np.float32)
+            bin_max = np.full((BVH_BINS, 3), -np.inf, np.float32)
+            np.minimum.at(bin_min, bins, tri_min[idx])
+            np.maximum.at(bin_max, bins, tri_max[idx])
+
+            lcnt = np.cumsum(bin_counts)[:-1]
+            rcnt = cnt - lcnt
+            lmin = np.minimum.accumulate(bin_min, axis=0)[:-1]
+            lmax = np.maximum.accumulate(bin_max, axis=0)[:-1]
+            rmin = np.minimum.accumulate(bin_min[::-1], axis=0)[::-1][1:]
+            rmax = np.maximum.accumulate(bin_max[::-1], axis=0)[::-1][1:]
+
+            valid = (lcnt > 0) & (rcnt > 0)
+            cost = np.where(
+                valid,
+                lcnt * surface_area(lmin, lmax)
+                + rcnt * surface_area(rmin, rmax),
+                np.inf,
+            )
+            k = int(np.argmin(cost))
+            if cost[k] < best_cost:
+                best_cost = cost[k]
+                best_axis = axis
+                best_bin = k
+
+        if best_axis < 0:
+            # Degenerate centroids: median split on the longest AABB axis.
+            best_axis = int(np.argmax(bmax - bmin))
+            axis_arr[node] = best_axis
+            key = cent[:, best_axis]
+            mid_local = cnt // 2
+            part = np.argpartition(key, mid_local)
+            order[start:end] = idx[part]
+            mid = start + mid_local
+        else:
+            scale = BVH_BINS / extent[best_axis]
+            bins = np.minimum(
+                ((cent[:, best_axis] - cmin[best_axis]) * scale
+                 ).astype(np.int32),
+                BVH_BINS - 1,
+            )
+            go_left = bins <= best_bin
+            order[start:end] = np.concatenate([idx[go_left], idx[~go_left]])
+            mid = start + int(go_left.sum())
+            if mid == start or mid == end:  # never emit an empty child
+                mid_local = cnt // 2
+                part = np.argpartition(cent[:, best_axis], mid_local)
+                order[start:end] = idx[part]
+                mid = start + mid_local
+
+        count[node] = 0
+        axis_arr[node] = best_axis
+        emit(start, mid, depth + 1)                     # left child = node+1
+        right = emit(mid, end, depth + 1)
+        left_first[node] = right                        # store right child
+        return node
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, 4 * n + 1000))
+    try:
+        emit(0, n, 0)
+    finally:
+        sys.setrecursionlimit(old_limit)
+
+    return _finalize_bvh(
+        node_min[:num_nodes], node_max[:num_nodes], left_first[:num_nodes],
+        count[:num_nodes], depth_arr[:num_nodes], axis_arr[:num_nodes],
+        order, device=device,
+    )
+
+
+def refit_bvh(bvh: BVH, tri_min, tri_max) -> BVH:
+    """Device-side refit to moved vertices: not ported yet."""
+    raise NotImplementedError(
+        "refit_bvh is not ported yet (ROADMAP A.2: refit_bvh on device)")

@@ -1,0 +1,244 @@
+"""Two-level acceleration: MeshBLAS + instances + SceneTLAS.
+
+PyTorch counterpart of ``messyerraytracer_tpu/accel/tlas.py``.  Two
+representations of one instanced scene, as in the reference:
+
+  * the instanced cluster TLAS (``build_instanced`` /
+    ``cast_rays_instanced``): memory ~ meshes, prim ids in the flattened
+    numbering, instance ids reported — the main path;
+  * the flattened world-space twin (``flat``, built lazily on first use),
+    a plain ``RayScene`` over every instance's world triangles.
+
+Transform updates (``set_transform``, ``refit_tlas``) wait for ROADMAP
+A.5; the two-level and frontier casts for A.10; ``instanced_scene`` for
+the rendering slice (A.8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.types import ALL_LAYERS, Hits, Rays
+from ..scene.scene import RayScene, build_scene
+
+
+def _to_mat4(transform) -> np.ndarray:
+    """Accept (4,4), (3,4), or (3,3) and return a (3,4) [R|t] float32."""
+    m = np.asarray(transform, np.float32)
+    if m.shape == (4, 4):
+        return m[:3, :]
+    if m.shape == (3, 4):
+        return m
+    if m.shape == (3, 3):
+        return np.concatenate([m, np.zeros((3, 1), np.float32)], axis=1)
+    raise ValueError(f"bad transform shape {m.shape}")
+
+
+@dataclasses.dataclass
+class MeshBLAS:
+    """Per-mesh object-space BLAS: a RayScene over the mesh's triangles."""
+
+    scene: RayScene
+    tri_array: np.ndarray  # (T, 3, 3) object-space vertices (host copy)
+    layers_orig: np.ndarray  # (T,) host layers, original order
+
+    @property
+    def num_tris(self) -> int:
+        return self.scene.num_tris
+
+    def object_bounds(self):
+        """Object-space AABB from the BLAS root."""
+        host = self.scene.bvh.host
+        return host["aabb_min"][0], host["aabb_max"][0]
+
+
+@dataclasses.dataclass
+class BLASInstance:
+    """Instance = blas_id + transform + cached inverse."""
+
+    blas_id: int
+    transform: np.ndarray      # (3,4) [R|t]
+    inv_transform: np.ndarray  # (3,4) world->object
+    layers: int = ALL_LAYERS
+
+    @staticmethod
+    def create(blas_id: int, transform, layers: int = ALL_LAYERS):
+        m = _to_mat4(transform)
+        r_inv = np.linalg.inv(m[:, :3])
+        t_inv = -r_inv @ m[:, 3]
+        inv = np.concatenate([r_inv, t_inv[:, None]],
+                             axis=1).astype(np.float32)
+        return BLASInstance(blas_id, m, inv, layers)
+
+    def world_aabb(self, obj_min, obj_max):
+        """World AABB by transforming all 8 box corners."""
+        corners = np.array(
+            [[x, y, z]
+             for x in (obj_min[0], obj_max[0])
+             for y in (obj_min[1], obj_max[1])
+             for z in (obj_min[2], obj_max[2])],
+            np.float32,
+        )
+        wc = corners @ self.transform[:, :3].T + self.transform[:, 3]
+        return wc.min(axis=0), wc.max(axis=0)
+
+
+class SceneTLAS:
+    """Top-level structure over BLAS instances: ``add_mesh`` ->
+    ``add_instance`` -> ``build_tlas`` / ``build_instanced``."""
+
+    def __init__(self, backend: str = "cluster", device="cpu"):
+        self.backend = backend
+        self.device = torch.device(device)
+        self.meshes: list[MeshBLAS] = []
+        self.instances: list[BLASInstance] = []
+        self._flat: RayScene | None = None
+        self._tri_inst: np.ndarray | None = None   # (F,) instance per tri
+        self._obj_tris: np.ndarray | None = None   # (F, 3, 3) object space
+        self._flat_layers: np.ndarray | None = None
+        self._ctlas = None                         # ClusterTLAS cache
+
+    # ---- build -------------------------------------------------------
+    def add_mesh(self, tri_array, layers=None) -> int:
+        """Register an object-space mesh; builds its BLAS.  Returns its
+        blas_id."""
+        tri_array = np.asarray(tri_array, np.float32)
+        scene = build_scene(tri_array[:, 0], tri_array[:, 1],
+                            tri_array[:, 2], layers=layers,
+                            backend=self.backend, device=self.device)
+        lay_np = (np.full(tri_array.shape[0], ALL_LAYERS, np.int32)
+                  if layers is None else np.asarray(layers, np.int32))
+        self.meshes.append(MeshBLAS(scene, tri_array, lay_np))
+        self._ctlas = None
+        return len(self.meshes) - 1
+
+    def add_instance(self, blas_id: int, transform,
+                     layers: int = ALL_LAYERS) -> int:
+        """Add an instance of a registered BLAS."""
+        if not 0 <= blas_id < len(self.meshes):
+            raise ValueError(f"no mesh with blas_id {blas_id}")
+        self.instances.append(BLASInstance.create(blas_id, transform,
+                                                  layers))
+        self._ctlas = None
+        return len(self.instances) - 1
+
+    def build_tlas(self) -> None:
+        """Gather the flattening metadata of all instances; the flattened
+        world-space twin itself is built lazily on first use (``flat``)."""
+        if not self.instances:
+            raise ValueError("build_tlas: no instances")
+        obj, inst_id, layers = [], [], []
+        for i, inst in enumerate(self.instances):
+            mesh = self.meshes[inst.blas_id]
+            obj.append(mesh.tri_array)
+            inst_id.append(np.full(mesh.tri_array.shape[0], i, np.int32))
+            layers.append(mesh.layers_orig & inst.layers)
+        self._obj_tris = np.concatenate(obj)
+        self._tri_inst = np.concatenate(inst_id)
+        self._flat_layers = np.concatenate(layers)
+        self._flat = None
+
+    @property
+    def flat(self) -> RayScene | None:
+        """The flattened world-space twin, built on first access."""
+        if self._flat is None and self._obj_tris is not None:
+            self._ensure_flat()
+        return self._flat
+
+    def _ensure_flat(self) -> None:
+        if self._flat is not None:
+            return
+        if self._obj_tris is None:
+            raise RuntimeError("call build_tlas first")
+        world = self._world_tris_np()
+        self._flat = build_scene(
+            world[:, 0], world[:, 1], world[:, 2],
+            layers=self._flat_layers, backend=self.backend,
+            device=self.device,
+        )
+
+    def _world_tris_np(self) -> np.ndarray:
+        tf = np.stack([i.transform for i in self.instances])  # (I,3,4)
+        r = tf[self._tri_inst, :, :3]          # (F,3,3)
+        t = tf[self._tri_inst, :, 3]           # (F,3)
+        return np.einsum("fij,fvj->fvi", r, self._obj_tris) + t[:, None, :]
+
+    # ---- casts through the flattened twin ----------------------------
+    def cast_rays(self, rays: Rays, query_mask=ALL_LAYERS):
+        """Closest-hit cast via the flattened scene.  Returns (hits,
+        stats, instance_id); instance_id is -1 on a miss."""
+        self._ensure_flat()
+        hits, stats = self._flat.cast_rays(rays, query_mask)
+        return hits, stats, self._instance_of_hits(hits)
+
+    def any_hit_rays(self, rays: Rays, query_mask=ALL_LAYERS):
+        self._ensure_flat()
+        return self._flat.any_hit_rays(rays, query_mask)
+
+    def _instance_of_hits(self, hits: Hits) -> torch.Tensor:
+        inst_orig = torch.as_tensor(self._tri_inst,
+                                    device=hits.prim_id.device)
+        pid = hits.prim_id.clamp_min(0).long()
+        return torch.where(hits.hit, inst_orig[pid],
+                           torch.full_like(inst_orig[pid], -1))
+
+    # ---- the instanced cast (cluster-TLAS kernel) ---------------------
+    def build_instanced(self, tcap: int | None = None):
+        """Build the instanced cluster-TLAS tables (memory ~ meshes)."""
+        from ..kernels.cluster import TCAP_DEFAULT
+        from ..kernels.cluster_tlas import build_cluster_tlas
+
+        self._ctlas = build_cluster_tlas(
+            [m.tri_array for m in self.meshes],
+            [(i.blas_id, i.transform) for i in self.instances],
+            tcap=TCAP_DEFAULT if tcap is None else tcap,
+            mesh_layers=[m.layers_orig for m in self.meshes],
+            inst_layers=[i.layers for i in self.instances],
+            device=self.device,
+        )
+        return self._ctlas
+
+    def cast_rays_instanced(self, rays: Rays, query_mask=ALL_LAYERS,
+                            any_hit: bool = False):
+        """Frame-scale instanced cast on kernel B1.  Returns (hits, stats,
+        occluded, instance_id); prim ids are in the flattened numbering,
+        so results compare directly with ``cast_rays``."""
+        from ..kernels.cluster_v2 import cast_rays_cluster_tlas_v2
+
+        if self._ctlas is None:
+            self.build_instanced()
+        return cast_rays_cluster_tlas_v2(rays, self._ctlas,
+                                         query_mask=query_mask,
+                                         any_hit=any_hit)
+
+    # ---- not ported yet ----------------------------------------------
+    def set_transform(self, instance_id: int, transform) -> None:
+        raise NotImplementedError(
+            "SceneTLAS.set_transform is not ported yet (ROADMAP A.5: "
+            "set_transforms and refit_tlas)")
+
+    def refit_tlas(self) -> None:
+        raise NotImplementedError(
+            "SceneTLAS.refit_tlas is not ported yet (ROADMAP A.5)")
+
+    def build_two_level(self):
+        raise NotImplementedError(
+            "the frontier two-level tables are not ported yet (ROADMAP "
+            "A.10)")
+
+    def cast_rays_two_level(self, rays: Rays, query_mask=ALL_LAYERS):
+        raise NotImplementedError(
+            "cast_rays_two_level is not ported yet (ROADMAP A.10)")
+
+    def cast_rays_two_level_fast(self, rays: Rays, query_mask=ALL_LAYERS,
+                                 any_hit: bool = False):
+        raise NotImplementedError(
+            "cast_rays_two_level_fast is not ported yet (ROADMAP A.10)")
+
+    def instanced_scene(self):
+        raise NotImplementedError(
+            "instanced_scene (the renderer's view) is not ported yet "
+            "(ROADMAP A.8)")

@@ -1,0 +1,337 @@
+"""Cluster layout — host-side build of the tables the cluster cast reads.
+
+PyTorch counterpart of the host half of ``messyerraytracer_tpu/kernels/
+cluster.py``.  The design is the same two-level structure:
+
+  * The binary SAH BVH is cut at maximal subtrees of <= T triangles
+    ("clusters", T = 32 or 64 by scene density).  The upper tree over the
+    clusters is collapsed 8-wide and traversed with a stack.
+  * A cluster visit intersects the ray with its <= T triangles by the
+    anchored Plucker form of Moller-Trumbore: per triangle 16 precomputed
+    fields, with v0 taken relative to the cluster's anchor (its AABB
+    center) so the operands stay O(cluster size) and t keeps ~1e-7
+    relative accuracy.
+
+    det   = e1.(d x e2)        = -d.n
+    u_num = (o-v0).(d x e2)    = e2.m + d.(v0 x e2)
+    v_num = d.((o-v0) x e1)    = -e1.m - d.(v0 x e1)
+    t_num = (o-v0).n           = o.n - v0.n        (n = e1 x e2, m = o x d)
+
+The JAX package stores all of this as 128-lane float slabs, with integers
+as exact floats, because that is what a TPU DMA and vector unit want.  The
+port keeps dense tables instead (``ClusterScene``): int32 child codes, an
+explicit absent-child code, int32 prim ids and layer masks.  The numbers
+in them are produced by the same numpy operations as the JAX package's
+``_host_refresh``, so they are bit-identical to the converted JAX tables
+(``cluster_scene_from_jax``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .wide import NODE8_STRIDE, WIDE8_CAP, _collapse8
+
+TCAP_DEFAULT = 64       # triangles per cluster
+LOCAL_BITS = 13         # instanced leaf payload: gid = inst << 13 | local
+LOCAL_MASK = (1 << LOCAL_BITS) - 1   # => <= 8192 clusters/mesh
+KSTACK = 64             # traversal stack floor (scenes size it up from
+#                         their build-time worst case, _kstack_for)
+ABSENT = -1             # child code of an empty child slot
+
+
+def cluster_tcap_for(num_tris: int) -> int:
+    """Density-routed cluster size of the JAX package: T=32 up to ~300K
+    triangles, T=64 above (its routing, measured on a TPU; re-measuring
+    it on the H100 is open work)."""
+    return 32 if num_tris <= 300_000 else 64
+
+
+# ---------------------------------------------------------------------------
+# cluster cut over the binary DFS BVH
+# ---------------------------------------------------------------------------
+
+def _tree_levels(lf: np.ndarray, cnt: np.ndarray):
+    """Per-depth node index lists for the DFS binary tree (children of
+    internal preorder node i are i+1 and lf[i])."""
+    is_leaf = cnt > 0
+    levels = []
+    frontier = np.array([0], np.int64)
+    while frontier.size:
+        levels.append(frontier)
+        f_int = frontier[~is_leaf[frontier]]
+        frontier = (np.concatenate([f_int + 1, lf[f_int]])
+                    if f_int.size else np.empty(0, np.int64))
+    return levels, is_leaf
+
+
+def cluster_cut(lf: np.ndarray, cnt: np.ndarray, tcap: int):
+    """Cut the tree at maximal subtrees holding <= tcap triangles.
+
+    Returns (roots, first, count): cluster root node ids in DFS order and
+    each cluster's contiguous triangle-slot range.
+    """
+    m = len(cnt)
+    levels, is_leaf = _tree_levels(lf, cnt)
+    sub_cnt = np.where(is_leaf, cnt, 0).astype(np.int64)
+    sub_first = np.where(is_leaf, lf, 0).astype(np.int64)
+    for lvl in reversed(levels):
+        li = lvl[~is_leaf[lvl]]
+        if li.size:
+            sub_cnt[li] = sub_cnt[li + 1] + sub_cnt[lf[li]]
+            sub_first[li] = sub_first[li + 1]
+    par = np.full(m, -1, np.int64)
+    internal = np.nonzero(~is_leaf)[0]
+    par[internal + 1] = internal
+    par[lf[internal]] = internal
+    mark = sub_cnt <= tcap
+    root_flag = mark.copy()
+    root_flag[1:] &= ~mark[par[1:]]
+    roots = np.nonzero(root_flag)[0]
+    return (roots.astype(np.int64), sub_first[roots].astype(np.int64),
+            sub_cnt[roots].astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# the port's tables
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ClusterScene:
+    """Tables of the cluster cast, on one device.
+
+    node_box    (NW, 8, 6) f32 — child k's box [min.xyz, max.xyz]; NaN for
+                an absent child (never read: its code says absent)
+    node_child  (NW, 8) i32 — 2*ptr + is_cluster; ptr = wide node index
+                or cluster id (instanced: gid = inst << 13 | local);
+                ABSENT (-1) for an empty slot
+    node_axis   (NW,) i32 — the axis the children are sorted along
+    tri         (C, T, 16) f32 — per triangle: -n, v0'xe2, e2, -(v0'xe1),
+                -e1, -v0'.n (v0' relative to the cluster anchor); zero
+                rows pad a cluster to T
+    tri_prim    (C, T) i32 — prim id (0 on pad rows)
+    tri_layers  (C, T) i32 — layer mask (0 on pad rows)
+    cl_anchor   (C, 3) f32, cl_count (C,) i32, cl_aabb (C, 6) f32
+    dummy_enc   2 * NW — the JAX package's never-hit dummy node code,
+                kept as the scene's identity for conversions
+    stack_need  build-time worst-case traversal stack depth
+    """
+
+    node_box: torch.Tensor
+    node_child: torch.Tensor
+    node_axis: torch.Tensor
+    tri: torch.Tensor
+    tri_prim: torch.Tensor
+    tri_layers: torch.Tensor
+    cl_anchor: torch.Tensor
+    cl_count: torch.Tensor
+    cl_aabb: torch.Tensor
+    tcap: int
+    dummy_enc: int
+    num_clusters: int
+    stack_need: int
+
+
+def _put(tables: dict, device) -> dict:
+    return {k: torch.tensor(np.ascontiguousarray(v), device=device)
+            for k, v in tables.items()}
+
+
+def _kstack_for(stack_need: int) -> int:
+    """Traversal stack size for a cast: the scene's build-time worst-case
+    bound (``_wide_stack_need``) plus slack, floored at KSTACK (the JAX
+    package's sizing at one pop per step)."""
+    return max(KSTACK, int(stack_need) + 2)
+
+
+def _wide_stack_need(children, internal_kid):
+    """Worst-case transient DFS stack depth of the wide8 upper tree,
+    counted the way the cast pushes (all internal children of a popped
+    node land on the stack before the next pop).
+
+    ``children``: (nw, WIDE8_CAP) binary-node ids (-1 absent), row w =
+    wide node w; ``internal_kid``: same-shape bool, True where the child
+    is an internal wide node.  When wide node ``w`` is processed with
+    ``d`` entries beneath it the peak is ``d + k(w)``; each of its
+    internal kids is later processed with at most ``d + k(w) - 1``
+    entries beneath — conservative over both push orders."""
+    kid_rows = children[internal_kid]
+    wide_row_of = {int(b): i + 1 for i, b in enumerate(kid_rows)}
+    kcnt = internal_kid.sum(axis=1).astype(np.int64)
+    need = 1                                     # root entry at init
+    work = [(0, 0)]
+    while work:
+        w, d = work.pop()
+        k = int(kcnt[w])
+        if d + k > need:
+            need = d + k
+        if k:
+            row = children[w]
+            for j in range(row.shape[0]):
+                if internal_kid[w, j]:
+                    work.append((wide_row_of[int(row[j])], d + k - 1))
+    return int(need)
+
+
+def _upper_node_tables(amin, amax, lf, cnt, is_cluster, cluster_of):
+    """8-wide node tables of the upper tree (cluster roots are its
+    leaves; a leaf's payload is ``cluster_of``).  Returns
+    (node_box, node_child, node_axis, nw, stack_need)."""
+    m = amin.shape[0]
+    ucnt = np.where(is_cluster, 1, 0).astype(np.int32)
+    children, waxes = _collapse8(amin, amax, lf, ucnt)
+    children = np.asarray(children, np.int32)
+    nw = children.shape[0]
+
+    wide_of = np.full(m, -1, np.int32)
+    order = children[children >= 0]
+    internal_kids = order[ucnt[order] == 0]
+    wide_of[0] = 0
+    wide_of[internal_kids] = np.arange(1, len(internal_kids) + 1,
+                                       dtype=np.int32)
+
+    present = children >= 0
+    ck = np.where(present, children, 0)
+    ptr = np.where(is_cluster[ck], cluster_of[ck], wide_of[ck])
+    node_child = np.where(present, 2 * ptr + is_cluster[ck],
+                          ABSENT).astype(np.int32)
+    node_box = np.concatenate(
+        [amin[ck], amax[ck]], axis=-1).astype(np.float32)   # (nw, 8, 6)
+    node_box[~present] = np.nan
+    stack_need = _wide_stack_need(children, present & ~is_cluster[ck])
+    return (node_box, node_child, np.asarray(waxes, np.int32), nw,
+            stack_need)
+
+
+def _cluster_tables_np(amin, amax, lf, cnt, _np, tcap: int):
+    """All tables of one cluster scene in numpy.
+
+    ``_np`` = (v0, e1, e2, normal, prim_id, layers) in BVH slot order.
+    Returns (tables, meta): numpy arrays keyed like ``ClusterScene``'s
+    tensor fields, and its metadata."""
+    pv0, pe1, pe2 = (np.asarray(a, np.float32) for a in _np[:3])
+    pid = np.asarray(_np[4], np.int32)
+    lay = np.asarray(_np[5], np.int32)
+    t = int(pid.shape[0])
+    if pid.max(initial=0) >= (1 << 24):
+        # the JAX package stores prim ids as exact floats; the port keeps
+        # its contract so the two stay interchangeable
+        raise ValueError("prim ids >= 2^24 not exactly representable in "
+                         "the cluster slab metadata lanes")
+    m = amin.shape[0]
+    roots, cfirst, ccnt = cluster_cut(lf, cnt, tcap)
+    if ccnt.max(initial=0) > tcap:
+        raise ValueError("cluster_cut produced an oversized cluster")
+    c = len(roots)
+    is_cluster = np.zeros(m, bool)
+    is_cluster[roots] = True
+    cluster_of = np.full(m, -1, np.int32)
+    cluster_of[roots] = np.arange(c, dtype=np.int32)
+    node_box, node_child, node_axis, nw, stack_need = _upper_node_tables(
+        amin, amax, lf, cnt, is_cluster, cluster_of)
+
+    # padded slot tables: slot = c*tcap + k (the JAX _host_refresh math)
+    ks = np.arange(tcap, dtype=np.int64)[None, :]
+    slots = np.clip(cfirst[:, None] + ks, 0, max(t - 1, 0))   # (C, T)
+    valid = ks < ccnt[:, None]
+    anchors = (0.5 * (amin[roots] + amax[roots])).astype(np.float32)
+    vmask = valid.reshape(c, tcap, 1)
+    v0 = np.where(vmask, pv0[slots], 0.0).astype(np.float32)
+    e1 = np.where(vmask, pe1[slots], 0.0).astype(np.float32)
+    e2 = np.where(vmask, pe2[slots], 0.0).astype(np.float32)
+    v0c = v0 - anchors[:, None, :]
+    n = np.cross(e1, e2)
+    tri = np.concatenate(
+        [-n, np.cross(v0c, e2), e2, -np.cross(v0c, e1), -e1,
+         -np.sum(v0c * n, axis=-1, keepdims=True)], axis=-1,
+    ).astype(np.float32)                                      # (C, T, 16)
+    tables = {
+        "node_box": node_box,
+        "node_child": node_child,
+        "node_axis": node_axis,
+        "tri": tri,
+        "tri_prim": np.where(valid, pid[slots], 0).astype(np.int32),
+        "tri_layers": np.where(valid, lay[slots], 0).astype(np.int32),
+        "cl_anchor": anchors,
+        "cl_count": valid.sum(axis=1).astype(np.int32),
+        "cl_aabb": np.concatenate([amin[roots], amax[roots]],
+                                  axis=1).astype(np.float32),
+    }
+    meta = {"tcap": tcap, "dummy_enc": 2 * nw, "num_clusters": c,
+            "stack_need": stack_need}
+    return tables, meta
+
+
+def build_cluster_scene(bvh, tris, _np=None, tcap: int = TCAP_DEFAULT,
+                        device=None) -> ClusterScene:
+    """Build the cluster tables from a binary BVH + slot-ordered triangles.
+
+    Every table is arranged in numpy on the host (the JAX package's
+    ``host_arrange`` path, at every size) and put on ``device`` (default:
+    the device of ``tris``, else the CPU).  ``_np`` optionally gives host
+    copies (v0, e1, e2, normal, prim_id, layers) in slot order."""
+    host = bvh.host
+    if _np is None:
+        _np = tuple(x.cpu().numpy() for x in (
+            tris.v0, tris.edge1, tris.edge2, tris.normal, tris.prim_id,
+            tris.layers))
+    if device is None:
+        device = tris.v0.device if tris is not None else "cpu"
+    tables, meta = _cluster_tables_np(
+        host["aabb_min"], host["aabb_max"], host["left_first"],
+        host["count"], _np, tcap)
+    return ClusterScene(**_put(tables, device), **meta)
+
+
+# ---------------------------------------------------------------------------
+# conversion from the JAX package's scene state
+# ---------------------------------------------------------------------------
+
+def _nodes_from_jax(nodes, dummy_enc: int) -> dict:
+    """Dense node tables from JAX wide8 rows (2 nodes per 128 lanes)."""
+    nw = int(dummy_enc) // 2
+    rows = np.asarray(nodes, np.float32).reshape(-1, NODE8_STRIDE)[:nw]
+    enc = rows[:, 48:48 + WIDE8_CAP]
+    return {
+        "node_box": np.ascontiguousarray(
+            rows[:, :6 * WIDE8_CAP].reshape(nw, WIDE8_CAP, 6)),
+        # absent children carry the dummy node's enc
+        "node_child": np.where(enc == dummy_enc, ABSENT,
+                               enc.astype(np.int32)).astype(np.int32),
+        "node_axis": rows[:, 56].astype(np.int32),
+    }
+
+
+def _clusters_from_jax(slabs: np.ndarray, tcap: int) -> dict:
+    """Dense cluster tables from JAX slabs ((C, T+8, 128) f32: lanes
+    0-15 fields, 16 prim id, 17/18 layer mask halves; meta row T =
+    anchor, count, AABB)."""
+    lay = (slabs[:, :tcap, 17].astype(np.uint32)
+           | (slabs[:, :tcap, 18].astype(np.uint32) << np.uint32(16)))
+    meta = slabs[:, tcap]
+    return {
+        "tri": np.ascontiguousarray(slabs[:, :tcap, :16]),
+        "tri_prim": slabs[:, :tcap, 16].astype(np.int32),
+        "tri_layers": lay.view(np.int32),
+        "cl_anchor": np.ascontiguousarray(meta[:, 0:3]),
+        "cl_count": meta[:, 3].astype(np.int32),
+        "cl_aabb": np.ascontiguousarray(meta[:, 4:10]),
+    }
+
+
+def cluster_scene_from_jax(nodes, ablocks, *, tcap: int, dummy_enc: int,
+                           num_clusters: int, stack_need: int,
+                           device="cpu") -> ClusterScene:
+    """The port's tables from the numpy arrays of a JAX ``ClusterScene``
+    (its ``nodes`` and ``ablocks`` plus metadata), so both packages can
+    cast over the same scene state."""
+    slabs = np.asarray(ablocks, np.float32).reshape(-1, tcap + 8, 128)
+    tables = {**_nodes_from_jax(nodes, dummy_enc),
+              **_clusters_from_jax(slabs[:num_clusters], tcap)}
+    return ClusterScene(**_put(tables, device), tcap=tcap,
+                        dummy_enc=int(dummy_enc),
+                        num_clusters=int(num_clusters),
+                        stack_need=int(stack_need))

@@ -1,0 +1,253 @@
+"""Instanced two-level (TLAS/BLAS) tables for the cluster cast.
+
+PyTorch counterpart of ``messyerraytracer_tpu/kernels/cluster_tlas.py``
+(its build half).  The memory contract is the reference's native TLAS:
+
+  * Per (mesh, instance layer mask) group: object-space cluster tables,
+    SHARED by every instance of the group, so memory ~ meshes.
+  * One WORLD-SPACE upper tree over all (instance, cluster) pairs: each
+    pair's box is the object cluster AABB pushed through the instance
+    transform (8 corners), built with the binned-SAH builder over AABBs
+    with singleton leaves; a leaf's payload is gid = inst << 13 | local
+    cluster (<= 1024 instances x <= 8192 clusters per mesh).
+  * The cast traverses in world space and moves the ray into object
+    space at each cluster visit (no renormalization, so t stays in world
+    units); the hit normal goes back through the inverse-transpose.
+
+``set_transforms`` (device refit of the pair tree) waits for the refit
+slice (ROADMAP A.5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..accel.bvh import build_bvh, build_bvh_over_aabbs
+from ..core.types import ALL_LAYERS
+from .cluster import (
+    LOCAL_BITS,
+    LOCAL_MASK,
+    TCAP_DEFAULT,
+    ClusterScene,
+    _clusters_from_jax,
+    _cluster_tables_np,
+    _nodes_from_jax,
+    _put,
+    _upper_node_tables,
+)
+
+MAX_INSTANCES = 1 << (23 - LOCAL_BITS)   # 1024
+
+
+@dataclasses.dataclass
+class ClusterTLAS(ClusterScene):
+    """Tables of the instanced cluster cast: the ``ClusterScene`` fields
+    (world-space upper tree; per-group object-space clusters
+    concatenated) plus per-instance tables.
+
+    inst_cbase (Ni,) i32 — first cluster of the instance's group
+    iprim      (Ni,) i32 — global prim-id base (the flattened numbering)
+    iinv       (Ni, 12) f32 — world->object rows [R^-1 | -R^-1 t]
+    ifwd       (Ni, 9) f32 — normal matrix (R^-1)^T, row-major
+    """
+
+    inst_cbase: torch.Tensor
+    iprim: torch.Tensor
+    iinv: torch.Tensor
+    ifwd: torch.Tensor
+    n_inst: int
+    num_pairs: int
+
+
+def _to_mat34(t) -> np.ndarray:
+    """Accept a (3,4), (4,4), or (3,3)+implicit-0 transform -> (3,4)."""
+    t = np.asarray(t, np.float64)  # host-side inverse precision
+    if t.shape == (4, 4):
+        return t[:3, :]
+    if t.shape == (3, 4):
+        return t
+    if t.shape == (3, 3):
+        return np.concatenate([t, np.zeros((3, 1))], axis=1)
+    raise ValueError(f"transform shape {t.shape} unsupported")
+
+
+def _inst_tables(transforms: list):
+    """(iinv (Ni, 16), ifwd (Ni, 9)) f32 as the JAX package lays them out
+    (iinv lanes 12-15 unused)."""
+    ni = len(transforms)
+    iinv = np.zeros((ni, 16), np.float32)
+    ifwd = np.zeros((ni, 9), np.float32)
+    for i, t in enumerate(transforms):
+        m = _to_mat34(t)
+        r = m[:, :3]
+        rinv = np.linalg.inv(r)
+        tinv = -rinv @ m[:, 3]
+        iinv[i, :12] = np.concatenate(
+            [rinv[0], [tinv[0]], rinv[1], [tinv[1]], rinv[2], [tinv[2]]]
+        ).astype(np.float32)
+        # normals transform by the inverse-transpose basis
+        ifwd[i] = rinv.T.reshape(-1).astype(np.float32)
+    return iinv, ifwd
+
+
+def _pair_world_aabbs_np(obj_min, obj_max, fwd_rows):
+    """8-corner transform of object AABBs -> world AABBs (numpy, the JAX
+    package's build-path twin; same f32 operations)."""
+    obj_min = np.asarray(obj_min, np.float32)
+    obj_max = np.asarray(obj_max, np.float32)
+    m = np.asarray(fwd_rows, np.float32)
+    wmin = np.full_like(obj_min, np.inf)
+    wmax = np.full_like(obj_min, -np.inf)
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                c = np.stack(
+                    [obj_max[:, 0] if cx else obj_min[:, 0],
+                     obj_max[:, 1] if cy else obj_min[:, 1],
+                     obj_max[:, 2] if cz else obj_min[:, 2]], axis=-1)
+                w = np.stack(
+                    [m[:, 0] * c[:, 0] + m[:, 1] * c[:, 1]
+                     + m[:, 2] * c[:, 2] + m[:, 3],
+                     m[:, 4] * c[:, 0] + m[:, 5] * c[:, 1]
+                     + m[:, 6] * c[:, 2] + m[:, 7],
+                     m[:, 8] * c[:, 0] + m[:, 9] * c[:, 1]
+                     + m[:, 10] * c[:, 2] + m[:, 11]], axis=-1)
+                wmin = np.minimum(wmin, w)
+                wmax = np.maximum(wmax, w)
+    return wmin.astype(np.float32), wmax.astype(np.float32)
+
+
+def build_cluster_tlas(mesh_tris: list, instances: list,
+                       tcap: int = TCAP_DEFAULT,
+                       mesh_layers: list | None = None,
+                       inst_layers: list | None = None,
+                       device="cpu") -> ClusterTLAS:
+    """Build the instanced tables.
+
+    mesh_tris: list of (T, 3, 3) float vertex arrays (object space).
+    instances: list of (mesh_id, transform) with transform (3,4)/(4,4).
+    mesh_layers: optional per-mesh (T,) int32 per-triangle layer masks
+    (original triangle order); inst_layers: optional per-instance masks.
+    A triangle's effective layers = tri_layers & instance_layers; each
+    distinct (mesh, instance mask) pair gets its own cluster group.
+    """
+    ni = len(instances)
+    if ni == 0 or ni > MAX_INSTANCES:
+        raise ValueError(f"instances must be 1..{MAX_INSTANCES}")
+    mesh_ids = [int(m) for m, _ in instances]
+    transforms = [t for _, t in instances]
+    if inst_layers is None:
+        inst_layers = [ALL_LAYERS] * ni
+    inst_layers = [int(m) for m in inst_layers]
+
+    group_of = {}
+    group_inst = []            # group index per instance
+    for key in zip(mesh_ids, inst_layers):
+        group_inst.append(group_of.setdefault(key, len(group_of)))
+
+    groups = []                # per-group numpy tables
+    cbases = []
+    total_c = 0
+    for mesh_id, g_ilayers in group_of:
+        tri = np.asarray(mesh_tris[mesh_id], np.float32)
+        v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
+        host = build_bvh(v0, v1, v2).host
+        perm = host["tri_order"]
+        pv0, pv1, pv2 = v0[perm], v1[perm], v2[perm]
+        e1, e2 = pv1 - pv0, pv2 - pv0
+        if mesh_layers is None or mesh_layers[mesh_id] is None:
+            tl = np.full(len(v0), ALL_LAYERS, np.int32)
+        else:
+            tl = np.asarray(mesh_layers[mesh_id], np.int32)
+        eff_layers = (tl & np.int32(g_ilayers))[perm]
+        tables, meta = _cluster_tables_np(
+            host["aabb_min"], host["aabb_max"], host["left_first"],
+            host["count"],
+            (pv0, e1, e2, None,
+             np.arange(len(v0), dtype=np.int32)[perm], eff_layers),
+            tcap)
+        if meta["num_clusters"] > LOCAL_MASK + 1:
+            raise ValueError(
+                f"mesh has {meta['num_clusters']} clusters > "
+                f"{LOCAL_MASK + 1}; use the flat path for huge meshes")
+        groups.append(tables)
+        cbases.append(total_c)
+        total_c += meta["num_clusters"]
+
+    fwd_rows = np.stack([_to_mat34(t).astype(np.float32).reshape(-1)
+                         for t in transforms])
+    iinv, ifwd = _inst_tables(transforms)
+    # flattened-scene global prim-id base per instance
+    iprim = np.cumsum([0] + [len(mesh_tris[m]) for m in mesh_ids[:-1]]
+                      ).astype(np.int32)
+
+    # ---- (instance, cluster) pairs + world AABBs ----------------------
+    pobj, pinst, pgid = [], [], []
+    for i, g in enumerate(group_inst):
+        ca = groups[g]["cl_aabb"]
+        pobj.append(ca)
+        pinst.append(np.full(len(ca), i, np.int32))
+        pgid.append((i << LOCAL_BITS) + np.arange(len(ca), dtype=np.int32))
+    pobj = np.concatenate(pobj)
+    pinst = np.concatenate(pinst)
+    pgid = np.concatenate(pgid)
+
+    wmin, wmax = _pair_world_aabbs_np(pobj[:, 0:3], pobj[:, 3:6],
+                                      fwd_rows[pinst])
+    host = build_bvh_over_aabbs(wmin, wmax, (wmin + wmax) * 0.5,
+                                max_leaf_size=1).host
+    lf, cnt = host["left_first"], host["count"]
+    is_leaf = cnt > 0
+    gid_of_node = np.zeros(len(cnt), np.int32)
+    gid_of_node[is_leaf] = pgid[host["tri_order"][lf[is_leaf]]]
+    node_box, node_child, node_axis, nw, stack_need = _upper_node_tables(
+        host["aabb_min"], host["aabb_max"], lf, cnt, is_leaf, gid_of_node)
+
+    tables = {k: np.concatenate([g[k] for g in groups])
+              for k in ("tri", "tri_prim", "tri_layers", "cl_anchor",
+                        "cl_count", "cl_aabb")}
+    tables.update(
+        node_box=node_box, node_child=node_child, node_axis=node_axis,
+        inst_cbase=np.asarray([cbases[g] for g in group_inst], np.int32),
+        iprim=iprim, iinv=iinv[:, :12], ifwd=ifwd)
+    return ClusterTLAS(**_put(tables, device), tcap=tcap,
+                       dummy_enc=2 * nw, num_clusters=total_c,
+                       stack_need=stack_need, n_inst=ni,
+                       num_pairs=len(pgid))
+
+
+def set_transforms(ct: ClusterTLAS, transforms: list) -> ClusterTLAS:
+    """Device refit of the pair tree after transform updates: not ported
+    yet."""
+    raise NotImplementedError(
+        "set_transforms is not ported yet (ROADMAP A.5: set_transforms and "
+        "refit_tlas)")
+
+
+def cluster_tlas_from_jax(nodes, ablocks, islab, iprim, iinv, ifwd, *,
+                          tcap: int, dummy_enc: int, stack_need: int,
+                          num_pairs: int = 0, device="cpu") -> ClusterTLAS:
+    """The port's instanced tables from the numpy arrays of a JAX
+    ``ClusterTLAS``.  Its slabs hold one trailing all-zero dummy cluster
+    per group; a real cluster always holds >= 1 triangle, so the dummies
+    are the slabs whose count lane is 0, and they are dropped."""
+    br = tcap + 8
+    slabs = np.asarray(ablocks, np.float32).reshape(-1, br, 128)
+    real = slabs[:, tcap, 3] > 0
+    port_index = np.cumsum(real) - real           # slab -> port cluster
+    islab = np.asarray(islab, np.int64).reshape(-1)
+    tables = {**_nodes_from_jax(nodes, dummy_enc),
+              **_clusters_from_jax(slabs[real], tcap)}
+    tables.update(
+        inst_cbase=port_index[islab // br].astype(np.int32),
+        iprim=np.asarray(iprim, np.int32).reshape(-1),
+        iinv=np.asarray(iinv, np.float32)[:, :12],
+        ifwd=np.asarray(ifwd, np.float32))
+    return ClusterTLAS(**_put(tables, device), tcap=tcap,
+                       dummy_enc=int(dummy_enc),
+                       num_clusters=int(real.sum()),
+                       stack_need=int(stack_need), n_inst=len(islab),
+                       num_pairs=int(num_pairs))

@@ -1,0 +1,145 @@
+"""Native libraries of the port: build at first use, bind through ctypes.
+
+Two kinds of shared library are built into ``BUILD_DIR`` (git-ignored):
+
+  * the host-side binned-SAH BVH builder — the JAX package's
+    ``messyerraytracer_tpu/native/sah_builder.cpp``, compiled by file
+    path with g++ (importing ``messyerraytracer_tpu.native`` would run
+    that package's ``__init__``, which imports jax).  Hosts without g++
+    keep the numpy builder (accel/bvh.py) — host build code, not a
+    device path;
+  * the CUDA kernels under ``kernels/csrc/``, compiled with nvcc for
+    ``sm_90a`` into a library with a plain C interface
+    (``build_shared_library``; bound by kernels/cluster_v2.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG, "_build")
+SAH_SRC = os.path.join(os.path.dirname(_PKG), "messyerraytracer_tpu",
+                       "native", "sah_builder.cpp")
+
+_LOCK = threading.Lock()
+_LIB = None
+_TRIED = False
+
+
+def build_shared_library(cmd: list[str], sources: list[str],
+                         name: str) -> str:
+    """Compile ``sources`` with ``cmd + [-o out] + sources`` into
+    ``BUILD_DIR/name`` unless an up-to-date build is there.
+
+    The output is written under a temporary name and renamed into place,
+    so concurrent builders (test workers) never load a half-written file.
+    Raises ``RuntimeError`` with the compiler's output on failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, name)
+    newest = max(os.path.getmtime(s) for s in sources)
+    if os.path.exists(out) and os.path.getmtime(out) >= newest:
+        return out
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(cmd + ["-o", tmp] + sources,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {name} failed ({' '.join(cmd)}):\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+_F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_INT = ctypes.c_int32
+
+# argtypes as in the JAX package's native/__init__.py.  The wide8 table
+# builder emits the JAX package's lane-packed leaf layout, which the port's
+# slice does not read; it is bound so a later slice can call it.
+_SIGNATURES = {
+    "mrt_build_bvh": [_INT, _F32, _F32, _F32, _F32, _F32,
+                      _I32, _I32, _I32, _I32, _I32],
+    "mrt_build_bvh_aabbs": [_INT, _INT, _F32, _F32, _F32, _F32, _F32,
+                            _I32, _I32, _I32, _I32, _I32],
+    "mrt_build_wide8_tables": [_INT, _F32, _F32, _I32, _I32, _INT,
+                               _I32, _F32, _I32, _F32, _I32, _I32],
+}
+
+
+def get_native_lib():
+    """Load (compiling if needed) the SAH builder library, or None when
+    this host cannot compile it (no g++, or the source is absent)."""
+    global _LIB, _TRIED
+    with _LOCK:
+        if _TRIED:
+            return _LIB
+        _TRIED = True
+        try:
+            path = build_shared_library(
+                ["g++", "-O3", "-march=native", "-shared", "-fPIC"],
+                [SAH_SRC], "libmrt_native.so")
+        except (OSError, RuntimeError):
+            return None      # no compiler here: numpy builder fallback
+        lib = ctypes.CDLL(path)
+        for fn, argtypes in _SIGNATURES.items():
+            f = getattr(lib, fn)
+            f.restype = ctypes.c_int32
+            f.argtypes = argtypes
+        _LIB = lib
+        return _LIB
+
+
+def _bvh_outputs(n: int):
+    m = max(2 * n - 1, 1)
+    return (np.empty((m, 3), np.float32), np.empty((m, 3), np.float32),
+            np.zeros(m, np.int32), np.zeros(m, np.int32),
+            np.zeros(m, np.int32), np.zeros(m, np.int32),
+            np.zeros(n, np.int32))
+
+
+def native_build_bvh_aabbs(tri_min, tri_max, centroid, max_leaf: int):
+    """C++ binned-SAH build over primitive AABBs/centroids with a chosen
+    leaf threshold.  Returns (node_min, node_max, left_first, count,
+    depth, axis, order, num_nodes) or None if native is unavailable."""
+    lib = get_native_lib()
+    if lib is None:
+        return None
+    n = int(tri_min.shape[0])
+    outs = _bvh_outputs(n)
+    num = lib.mrt_build_bvh_aabbs(
+        n, int(max_leaf), np.ascontiguousarray(tri_min, np.float32),
+        np.ascontiguousarray(tri_max, np.float32),
+        np.ascontiguousarray(centroid, np.float32), *outs)
+    if num <= 0:
+        return None
+    return tuple(a[:num] for a in outs[:6]) + (outs[6], int(num))
+
+
+def native_build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray):
+    """C++ binned-SAH build over triangles.  Returns (node_min, node_max,
+    left_first, count, depth, axis, tri_order, num_nodes) or None if the
+    native library is unavailable."""
+    lib = get_native_lib()
+    if lib is None:
+        return None
+    n = int(v0.shape[0])
+    outs = _bvh_outputs(n)
+    num = lib.mrt_build_bvh(
+        n, *(np.ascontiguousarray(v, np.float32) for v in (v0, v1, v2)),
+        *outs)
+    if num <= 0:
+        return None
+    return tuple(a[:num] for a in outs[:6]) + (outs[6], int(num))

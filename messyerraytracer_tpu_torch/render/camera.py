@@ -1,0 +1,129 @@
+"""Batch ray generation (PyTorch counterpart of the JAX package's
+render/camera.py; same semantics):
+
+  * pixel center at +0.5, NDC u = 2*(x+jx)/w - 1, v = 1 - 2*(y+jy)/h
+  * perspective: view dir (u*half_w, v*half_h, -1) with
+    half_h = tan(fov/2), half_w = half_h * aspect (vertical FOV),
+    transformed by the camera basis, normalized
+  * orthographic: uniform forward direction, origin offset in the camera
+    XY plane
+  * debug grid: half_w = tan(fov/2), half_h = half_w * (h/w), v NOT
+    flipped (positive v = camera up)
+
+Rays come out in row-major raster order.  They are computed on the CPU in
+float32 and then moved to ``device``, so every device sees the same rays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.types import Rays, make_rays
+
+
+def _normalize(v):
+    return v / torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraParams:
+    """Plain-float camera description.
+
+    basis: (3,3) columns are camera-space right / up / back (-forward),
+    i.e. the camera looks along -Z.
+    """
+
+    origin: tuple
+    basis: tuple  # 3x3 nested tuple: basis[:, i] = axis i
+    fov_degrees: float = 75.0
+    ortho: bool = False
+    ortho_size: float = 4.0  # full vertical extent in world units
+
+    @staticmethod
+    def look_at(origin, target, up=(0.0, 1.0, 0.0), fov_degrees=75.0,
+                ortho=False, ortho_size=4.0) -> "CameraParams":
+        """Construct a camera basis looking from origin toward target."""
+        o = np.asarray(origin, np.float32)
+        fwd = np.asarray(target, np.float32) - o
+        fwd = fwd / np.linalg.norm(fwd)
+        upv = np.asarray(up, np.float32)
+        if abs(float(np.dot(fwd, upv) / np.linalg.norm(upv))) > 0.999:
+            upv = np.array([1.0, 0.0, 0.0], np.float32)
+        right = np.cross(fwd, upv)
+        right = right / np.linalg.norm(right)
+        true_up = np.cross(right, fwd)
+        basis = np.stack([right, true_up, -fwd], axis=1)  # -Z = forward
+        return CameraParams(
+            origin=tuple(float(x) for x in o),
+            basis=tuple(tuple(float(x) for x in row) for row in basis),
+            fov_degrees=fov_degrees,
+            ortho=ortho,
+            ortho_size=ortho_size,
+        )
+
+
+def generate_rays(cam: CameraParams, width: int, height: int,
+                  jitter=(0.5, 0.5), device="cpu") -> Rays:
+    """Generate width*height rays in raster order (row-major, top-left
+    first).  ``jitter`` is the sub-pixel offset in [0,1): a pair of
+    scalars or of (H, W) arrays."""
+    origin = torch.tensor(cam.origin, dtype=torch.float32)
+    basis = torch.tensor(cam.basis, dtype=torch.float32)
+    jx, jy = (torch.as_tensor(j, dtype=torch.float32) for j in jitter)
+
+    x = torch.arange(width, dtype=torch.float32)[None, :]
+    y = torch.arange(height, dtype=torch.float32)[:, None]
+    u = (2.0 * (x + jx) / width) - 1.0
+    v = 1.0 - (2.0 * (y + jy) / height)
+    u, v = torch.broadcast_tensors(u, v)
+
+    if not cam.ortho:
+        tan_half = float(np.tan(np.deg2rad(cam.fov_degrees) * 0.5))
+        half_w = tan_half * (width / height)
+        view_dir = torch.stack([u * half_w, v * tan_half,
+                                -torch.ones_like(u)], dim=-1)
+        world_dir = _normalize(view_dir[..., 0:1] * basis[:, 0]
+                               + view_dir[..., 1:2] * basis[:, 1]
+                               + view_dir[..., 2:3] * basis[:, 2])
+        o = origin.expand(world_dir.shape)
+        return make_rays(o.reshape(-1, 3), world_dir.reshape(-1, 3),
+                         device=device)
+    half_h = cam.ortho_size * 0.5
+    half_w = half_h * (width / height)
+    o = (origin + basis[:, 0] * (u * half_w)[..., None]
+         + basis[:, 1] * (v * half_h)[..., None])
+    d = (-basis[:, 2]).expand(o.shape)
+    return make_rays(o.reshape(-1, 3), d.reshape(-1, 3), device=device)
+
+
+def debug_grid_rays(origin, forward, grid_w: int = 16, grid_h: int = 12,
+                    fov_degrees: float = 60.0, device="cpu") -> Rays:
+    """The debug ray grid: camera basis from forward + world-up hint
+    (fallback +X when |dot| > 0.99), pixel centers, v not flipped,
+    row-major with y=0 row first."""
+    o = np.asarray(origin, np.float32)
+    fwd = np.asarray(forward, np.float32)
+    fwd = fwd / np.linalg.norm(fwd)
+    up_hint = np.array([0.0, 1.0, 0.0], np.float32)
+    if abs(float(np.dot(fwd, up_hint))) > 0.99:
+        up_hint = np.array([1.0, 0.0, 0.0], np.float32)
+    right = np.cross(fwd, up_hint)
+    right = right / np.linalg.norm(right)
+    up = np.cross(right, fwd)
+    up = up / np.linalg.norm(up)
+
+    half_w = float(np.tan(np.deg2rad(fov_degrees) * 0.5))
+    half_h = half_w * (grid_h / grid_w)
+
+    x = torch.arange(grid_w, dtype=torch.float32)[None, :]
+    y = torch.arange(grid_h, dtype=torch.float32)[:, None]
+    u = (2.0 * (x + 0.5) / grid_w - 1.0) * half_w
+    v = (2.0 * (y + 0.5) / grid_h - 1.0) * half_h
+    u, v = torch.broadcast_tensors(u, v)
+    d = _normalize(torch.from_numpy(fwd) + torch.from_numpy(right)
+                   * u[..., None] + torch.from_numpy(up) * v[..., None])
+    o_arr = torch.from_numpy(o).expand(d.shape)
+    return make_rays(o_arr.reshape(-1, 3), d.reshape(-1, 3), device=device)

@@ -1,0 +1,129 @@
+"""Flat scene container — build triangles + BVH + cluster tables, cast rays.
+
+PyTorch counterpart of ``messyerraytracer_tpu/scene/scene.py``: owns the
+SoA triangle tensors (in BVH slot order), the BVH and the cluster tables,
+and exposes closest-hit / any-hit casts.  Backends ported so far:
+``cluster`` (the default; kernel B1 on CUDA) and ``brute`` (the oracle).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..accel.bvh import BVH, build_bvh
+from ..core.brute import any_hit_brute, cast_rays_brute
+from ..core.types import (
+    ALL_LAYERS,
+    Hits,
+    Rays,
+    RayStats,
+    Triangles,
+    triangle_fields_np,
+)
+from ..kernels.cluster import (
+    ClusterScene,
+    build_cluster_scene,
+    cluster_tcap_for,
+)
+from ..kernels.cluster_v2 import cast_rays_cluster_v2
+
+BACKENDS = ("cluster", "brute")
+
+
+def _not_ported(backend: str):
+    return NotImplementedError(
+        f"backend {backend!r} is not ported yet (ROADMAP A.10: secondary "
+        f"backends); ported: {BACKENDS}")
+
+
+@dataclasses.dataclass
+class RayScene:
+    """Flat (single-level) scene: reordered triangles + BVH.
+
+    ``tris`` is in BVH slot order; ``tris.prim_id`` carries the original
+    triangle ids so hits report stable ids across rebuilds.
+    """
+
+    tris: Triangles
+    bvh: BVH
+    cluster: ClusterScene | None = None
+    use_bvh: bool = True       # False = brute-force validation mode
+    backend: str = "cluster"
+
+    @property
+    def num_tris(self) -> int:
+        return self.tris.count
+
+    def cast_rays(self, rays: Rays, query_mask=ALL_LAYERS,
+                  incoherent: bool = False) -> tuple[Hits, RayStats]:
+        """Batched closest-hit cast.  ``incoherent`` is the JAX package's
+        knob-routing hint; the port has one kernel configuration."""
+        del incoherent
+        if not self.use_bvh or self.backend == "brute":
+            return cast_rays_brute(rays, self.tris, query_mask)
+        if self.backend == "cluster":
+            hits, stats, _ = cast_rays_cluster_v2(rays, self.cluster,
+                                                  int(query_mask))
+            return hits, stats
+        raise _not_ported(self.backend)
+
+    def any_hit_rays(self, rays: Rays, query_mask=ALL_LAYERS,
+                     incoherent: bool = False) -> torch.Tensor:
+        """Batched occlusion query."""
+        del incoherent
+        if not self.use_bvh or self.backend == "brute":
+            return any_hit_brute(rays, self.tris, query_mask)
+        if self.backend == "cluster":
+            _, _, occluded = cast_rays_cluster_v2(
+                rays, self.cluster, int(query_mask), any_hit=True)
+            return occluded
+        raise _not_ported(self.backend)
+
+    def refit(self, v0, v1, v2) -> "RayScene":
+        raise NotImplementedError(
+            "RayScene.refit is not ported yet (ROADMAP A.2/A.3: refit_bvh "
+            "and the device refresh of the cluster tables)")
+
+
+def build_scene(v0, v1, v2, layers=None, prim_id=None, use_bvh=True,
+                backend="cluster", device="cpu") -> RayScene:
+    """Build a flat scene from (T,3) vertex arrays on ``device``.
+
+    The BVH build and the table layout run on the host; the returned
+    tensors live on ``device``."""
+    from .. import _tune_malloc
+
+    if backend not in BACKENDS:
+        raise _not_ported(backend)
+    _tune_malloc()  # lazy, once: large-buffer heap reuse for this build
+    v0 = np.asarray(v0, np.float32)
+    v1 = np.asarray(v1, np.float32)
+    v2 = np.asarray(v2, np.float32)
+    t = v0.shape[0]
+    bvh = build_bvh(v0, v1, v2, device=device)
+    perm = bvh.host["tri_order"]
+    prim_id = (np.arange(t, dtype=np.int32) if prim_id is None
+               else np.asarray(prim_id, np.int32))
+    layers = (np.full((t,), ALL_LAYERS, np.int32) if layers is None
+              else np.asarray(layers, np.int32))
+    pv0, e1, e2, nrm = triangle_fields_np(v0[perm], v1[perm], v2[perm])
+    host = (pv0, e1, e2, nrm, prim_id[perm], layers[perm])
+    put = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    tris = Triangles(*(put(a) for a in host))
+    cluster = None
+    if backend == "cluster":
+        cluster = build_cluster_scene(bvh, tris, _np=host,
+                                      tcap=cluster_tcap_for(t),
+                                      device=device)
+    return RayScene(tris=tris, bvh=bvh, cluster=cluster, use_bvh=use_bvh,
+                    backend=backend)
+
+
+def build_scene_from_tri_array(tri_array, **kw) -> RayScene:
+    """Convenience: build from a (T, 3, 3) vertex array."""
+    tri_array = np.asarray(tri_array, np.float32)
+    return build_scene(tri_array[:, 0], tri_array[:, 1], tri_array[:, 2],
+                       **kw)

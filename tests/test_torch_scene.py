@@ -1,0 +1,241 @@
+"""PyTorch port: the slice end to end on the CPU — scene build and casts,
+the instanced TLAS API, ray generation, and the package's independence
+from JAX."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import messyerraytracer_tpu as jmrt  # noqa: E402
+from messyerraytracer_tpu.core.brute import (  # noqa: E402
+    any_hit_brute as jax_any_hit_brute,
+    cast_rays_brute as jax_brute,
+)
+from messyerraytracer_tpu.dispatch import morton as jmorton  # noqa: E402
+from messyerraytracer_tpu.utils import meshes as jmeshes  # noqa: E402
+
+import messyerraytracer_tpu_torch as pmrt  # noqa: E402
+from messyerraytracer_tpu_torch.accel.tlas import SceneTLAS  # noqa: E402
+from messyerraytracer_tpu_torch.core.brute import (  # noqa: E402
+    cast_rays_brute,
+)
+from messyerraytracer_tpu_torch.dispatch import morton as pmorton  # noqa
+from messyerraytracer_tpu_torch.scene.scene import (  # noqa: E402
+    build_scene,
+    build_scene_from_tri_array,
+)
+from messyerraytracer_tpu_torch.utils import meshes as pmeshes  # noqa: E402
+from torch_port_helpers import (  # noqa: E402
+    ANCHOR_ATOL,
+    assert_parity,
+    assert_same_hits,
+    jax_rays,
+    np_of,
+    port_rays,
+    rand_rays_np,
+    terrain_tris,
+)
+
+PKG = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                   "messyerraytracer_tpu_torch")
+
+
+def rays_pair(rj):
+    """The port's copy of a JAX Rays batch."""
+    return port_rays(np_of(rj.origin), np_of(rj.direction),
+                     np_of(rj.t_min), np_of(rj.t_max))
+
+
+def test_skill_canonical_drive_equals_jax():
+    sphere = pmeshes.uv_sphere(radius=1.0, rings=16, segments=32)
+    rj = jmrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 16, 12, 60.0)
+    rp = pmrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 16, 12, 60.0)
+    np.testing.assert_allclose(np_of(rp.direction), np_of(rj.direction),
+                               atol=1e-7)
+    tj = jmrt.make_triangles(sphere[:, 0], sphere[:, 1], sphere[:, 2])
+    hj, _ = jax_brute(rj, tj)
+    scene = build_scene_from_tri_array(sphere)
+    for h, _ in (scene.cast_rays(rp), cast_rays_brute(rp, scene.tris)):
+        assert_same_hits(h, hj)
+        mask = h.hit.numpy().reshape(12, 16)
+        np.testing.assert_array_equal(mask,
+                                      np_of(hj.hit).reshape(12, 16))
+        # centered blob silhouette, center t ~ 3.03, normals face the camera
+        assert mask[5:7, 7:9].all() and not mask[0].any()
+        assert abs(float(h.t.reshape(12, 16)[6, 8]) - 3.03) < 0.01
+        assert (h.normal[h.hit][:, 2] > 0).all()
+        assert abs(float(h.hit.float().mean()) - 0.23) < 0.01
+
+
+def test_flat_scene_end_to_end_vs_jax_brute():
+    tris = np.concatenate([terrain_tris(40),
+                           pmeshes.uv_sphere(2.0, 16, 32, center=(0, 2, 0))])
+    layers = np.where(np.arange(len(tris)) < 3200, 0b01, 0b10).astype(
+        np.int32)
+    o, d = rand_rays_np(1024, seed=21, extent=9.0)
+    rj = jax_rays(o, d)
+    tj = jmrt.make_triangles(tris[:, 0], tris[:, 1], tris[:, 2],
+                             layers=layers)
+    scene = build_scene_from_tri_array(tris, layers=layers)
+    for qm in (-1, 0b10):
+        hj, _ = jax_brute(rj, tj, qm)
+        h, s = scene.cast_rays(rays_pair(rj), qm)
+        assert_same_hits(h, hj, atol=1e-4, t_atol=ANCHOR_ATOL)
+        assert int(s.stack_drops) == 0 and int(s.hits) > 20
+        np.testing.assert_array_equal(
+            scene.any_hit_rays(rays_pair(rj), qm).numpy(),
+            np_of(jax_any_hit_brute(rj, tj, qm)))
+    brute = build_scene_from_tri_array(tris, layers=layers, backend="brute")
+    assert brute.cluster is None
+    hb, _ = brute.cast_rays(rays_pair(rj))
+    assert_same_hits(hb, jax_brute(rj, tj)[0], rtol=1e-6)
+
+
+def test_scene_tlas_end_to_end_vs_jax():
+    from messyerraytracer_tpu.accel.tlas import SceneTLAS as JaxSceneTLAS
+
+    def xf(tx, ty, tz, s=1.0):
+        m = np.eye(4, dtype=np.float32)
+        m[0, 0] = m[1, 1] = m[2, 2] = s
+        m[:3, 3] = (tx, ty, tz)
+        return m
+
+    rng = np.random.default_rng(11)
+    terrain = terrain_tris(12, extent=10.0)
+    sphere = pmeshes.uv_sphere(1.0, 12, 12)
+    jt, pt = JaxSceneTLAS(backend="brute"), SceneTLAS()
+    for t in (jt, pt):
+        t.add_mesh(terrain)
+        t.add_mesh(sphere)
+    for k in range(4):
+        m = xf((k % 2 - 0.5) * 10, 0.0, (k // 2 - 0.5) * 10)
+        jt.add_instance(0, m)
+        pt.add_instance(0, m)
+    for _ in range(12):
+        c = rng.uniform(-8, 8, 2)
+        m = xf(c[0], rng.uniform(1.0, 2.0), c[1], s=rng.uniform(0.5, 1.2))
+        jt.add_instance(1, m)
+        pt.add_instance(1, m)
+    jt.build_tlas()
+    pt.build_tlas()
+    pt.build_instanced()
+    cam = pmrt.CameraParams.look_at((0, 8, 14), (0, 1, 0), fov_degrees=60.0)
+    perm = pmorton.raster_block_permutation(64, 48, 32)
+    rp = pmrt.generate_rays(cam, 64, 48).take(perm)
+    rj = jax_rays(np_of(rp.origin), np_of(rp.direction))
+    hj, _, ij = jt.cast_rays(rj)                       # JAX flat brute
+    hi, si, occ, ii = pt.cast_rays_instanced(rp)
+    hf, sf = pt.flat.cast_rays(rp)
+    for h in (hi, hf):
+        assert_parity(h, hj)
+        np.testing.assert_array_equal(h.hit.numpy(), np_of(hj.hit))
+    same = hi.prim_id.numpy() == np_of(hj.prim_id)
+    np.testing.assert_array_equal(ii.numpy()[same], np_of(ij)[same])
+    assert 0.3 < float(hi.hit.float().mean()) < 1.0
+    assert int(si.stack_drops) == 0 and int(sf.stack_drops) == 0
+    # the flat twin's instance ids through SceneTLAS.cast_rays
+    _, _, i_flat = pt.cast_rays(rp)
+    np.testing.assert_array_equal(i_flat.numpy()[same], np_of(ij)[same])
+
+
+def test_camera_and_swizzle_match_jax():
+    cam = jmrt.CameraParams.look_at((0, 26, 55), (0, 1, 0), fov_degrees=60.0)
+    pcam = pmrt.CameraParams.look_at((0, 26, 55), (0, 1, 0),
+                                     fov_degrees=60.0)
+    assert cam.origin == pcam.origin and cam.basis == pcam.basis
+    rj, rp = jmrt.generate_rays(cam, 96, 54), pmrt.generate_rays(pcam, 96, 54)
+    np.testing.assert_array_equal(np_of(rp.origin), np_of(rj.origin))
+    np.testing.assert_allclose(np_of(rp.direction), np_of(rj.direction),
+                               atol=1e-7)
+    ocam = jmrt.CameraParams.look_at((0, 5, 5), (0, 0, 0), ortho=True)
+    pocam = pmrt.CameraParams.look_at((0, 5, 5), (0, 0, 0), ortho=True)
+    oj, op = jmrt.generate_rays(ocam, 16, 8), pmrt.generate_rays(pocam, 16, 8)
+    np.testing.assert_allclose(np_of(op.origin), np_of(oj.origin), atol=1e-6)
+    np.testing.assert_allclose(np_of(op.direction), np_of(oj.direction),
+                               atol=1e-7)
+    for w, h, b in ((1920, 1080, 32), (100, 37, 16)):
+        np.testing.assert_array_equal(
+            pmorton.raster_block_permutation(w, h, b),
+            jmorton.raster_block_permutation(w, h, b))
+
+
+def test_meshes_copy_matches_jax():
+    for name, args in (("uv_sphere", (1.6, 8, 12)), ("plane", (20.0, 0.0, 5)),
+                       ("box", ((1.4, 1.0, 1.2),)), ("cornell_room", ()),
+                       ("random_soup", (50,))):
+        np.testing.assert_array_equal(getattr(pmeshes, name)(*args),
+                                      getattr(jmeshes, name)(*args))
+
+
+def test_unported_backends_raise():
+    tris = pmeshes.box()
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        build_scene_from_tri_array(tris, backend="pallas")
+    scene = build_scene_from_tri_array(tris)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+        scene.refit(tris[:, 0], tris[:, 1], tris[:, 2])
+    scene.backend = "frontier"
+    with pytest.raises(NotImplementedError, match="frontier"):
+        scene.cast_rays(port_rays(np.zeros((1, 3)), np.ones((1, 3))))
+
+
+def test_build_scene_keeps_prim_ids_and_layers():
+    tris = pmeshes.uv_sphere(1.0, 8, 8)
+    n = len(tris)
+    pid = np.arange(n, dtype=np.int32)[::-1] + 100
+    lay = (np.arange(n) % 5 + 1).astype(np.int32)
+    scene = build_scene(tris[:, 0], tris[:, 1], tris[:, 2], layers=lay,
+                        prim_id=pid)
+    perm = scene.bvh.host["tri_order"]
+    np.testing.assert_array_equal(scene.tris.prim_id.numpy(), pid[perm])
+    o = np.tile(np.float32([[0, 0, 4]]), (3, 1))
+    d = np.tile(np.float32([[0, 0, -1]]), (3, 1))
+    h, _ = scene.cast_rays(port_rays(o, d))
+    k = int(np.nonzero(pid == int(h.prim_id[0]))[0][0])
+    assert int(h.hit_layers[0]) == lay[k]
+
+
+def test_port_sources_never_import_jax():
+    pat = re.compile(r"^\s*(import jax|from jax|import messyerraytracer_tpu"
+                     r"\b(?!_torch)|from messyerraytracer_tpu\b(?!_torch))",
+                     re.M)
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    assert not pat.search(fh.read()), f
+
+
+def test_imports_and_casts_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "import messyerraytracer_tpu_torch as mrt\n"
+        "from messyerraytracer_tpu_torch.scene.scene import "
+        "build_scene_from_tri_array\n"
+        "from messyerraytracer_tpu_torch.accel.tlas import SceneTLAS\n"
+        "from messyerraytracer_tpu_torch.utils import meshes\n"
+        "s = build_scene_from_tri_array(meshes.uv_sphere(1.0, 8, 16))\n"
+        "r = mrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 8, 6, 60.0)\n"
+        "h, _ = s.cast_rays(r)\n"
+        "t = SceneTLAS()\n"
+        "t.add_instance(t.add_mesh(meshes.box()), np.eye(4))\n"
+        "t.build_tlas()\n"
+        "hi = t.cast_rays_instanced(r)[0]\n"
+        "assert int(h.hit.sum()) > 0 and int(hi.hit.sum()) > 0\n"
+        "assert sys.modules['jax'] is None\n"
+        "assert not any(m.startswith('messyerraytracer_tpu.') or "
+        "m == 'messyerraytracer_tpu' for m in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=os.path.dirname(PKG))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
