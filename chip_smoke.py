@@ -1,24 +1,36 @@
 """Smoke run of the PyTorch port on one CUDA card: the quickest proof that
-the port still builds and runs its main path on the GPU.
+the port still builds and runs its main paths on the GPU.
 
     python3 chip_smoke.py
 
-Builds kernel B1 (kernels/csrc/cluster_cast.cu, nvcc -> ctypes) from the
-checkout, then:
+Builds both kernels from the checkout, each with its own nvcc started at
+the same time (B1: kernels/csrc/cluster_cast.cu, B4: kernels/csrc/
+wide_cast.cu; nvcc -> ctypes), then:
 
-  1. holds the kernel against its plain PyTorch version on the card, on
+  1. holds kernel B1 against its plain PyTorch version on the card, on
      test-sized flat and instanced scenes (closest hit, any hit, a layer
      mask, dead and zero-direction rays, a forced small stack): hits by
      the parity rule, counters and stack_drops exactly;
-  2. drives the main path at full size — the 1M-triangle instanced TLAS
-     of the JAX package's bench.py headline (4 meshes, 215 instances),
-     one block-swizzled 1920x1080 frame through
+  2. drives the cluster main path at full size — the 1M-triangle instanced
+     TLAS of the JAX package's bench.py headline (4 meshes, 215
+     instances), one block-swizzled 1920x1080 frame through
      ``SceneTLAS.cast_rays_instanced`` and through the flat twin
      ``build_scene_from_tri_array(world_tris).cast_rays`` — counts the
      kernel launches of that run, checks both casts on a 4096-ray
      subsample against the brute oracle, and holds the kernel against its
-     plain version on the whole frame at both shapes (instanced T=64 and
-     flat T=64), timing each.
+     plain version on the whole frame at both shapes, timing each;
+  3. holds kernel B4 against its plain version on the card, on the
+     test-sized flat scene built with ``backend="pallas"`` at branching 8
+     and 2 (closest hit, any hit, a layer mask, the quantized nodes, the
+     streamed casts of B5's contract, a forced small stack);
+  4. drives the ``pallas`` path at full size — the same 1M world
+     triangles built with ``backend="pallas"`` (8-wide), the same frame
+     through ``RayScene.cast_rays`` and ``any_hit_rays`` — counts B4's
+     launches (and that B1 did not launch), checks stack_drops and parity
+     against brute, holds B4 against its plain version on the whole frame,
+     times the cast and the kernel; the binary and quantized layouts at
+     the same scene by parity and on a 262,144-ray slice; and the v1
+     cluster entry points (B3) on B1.
 
 Every number is printed beside the card's name and power limit.  The last
 two lines are the kernel summary and the result, both JSON.  Exits
@@ -31,11 +43,22 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 
 FRAME = (1920, 1080)
+SLICE = 262_144        # rays of the frame held kernel == plain per layout
+
+# H100 SXM peaks for the bound (NVIDIA data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations the algorithm does per unit of counted work
+SLAB_OPS = 25          # one child box: 6 sub, 6 mul, 6 min/max, 4 combine,
+#                        3 compare
+MT_OPS = 55            # one classic Moller-Trumbore triangle test
+PLUCKER_OPS = 46       # one anchored Plucker triangle test (B1)
 
 
 def card_name_and_power() -> str:
@@ -68,6 +91,42 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take: (ms, what bounds it)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def build_kernels(card: str) -> None:
+    """Build both kernel libraries, one nvcc each, started together."""
+    from messyerraytracer_tpu_torch.kernels import cluster_v2, traverse_pallas
+
+    t0 = time.time()
+    errors = []
+
+    def build(mod):
+        try:
+            mod.cuda_library()
+        except Exception as e:      # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(m,))
+               for m in (cluster_v2, traverse_pallas)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    print(f"[{card}] kernel build {time.time() - t0} s (2 nvcc in "
+          f"parallel)", flush=True)
+
+
 def random_rays(n: int, seed: int, extent: float, device):
     """Random rays from a seed, with dead rays (t_max < t_min) and
     zero-direction rays mixed in."""
@@ -85,10 +144,10 @@ def random_rays(n: int, seed: int, extent: float, device):
 
 
 def compare_kernel_plain(rays, cs, chunk=None, **kw):
-    """Run kernel and plain version on the same rays; check the hits by
-    the parity rule and every counter exactly.  Returns the largest
-    absolute difference of the float outputs and the plain version's ms
-    (host clock, fenced by synchronization)."""
+    """Run kernel B1 and its plain version on the same rays; check the
+    hits by the parity rule and every counter exactly.  Returns the
+    largest absolute difference of the float outputs and the plain
+    version's ms (host clock, fenced by synchronization)."""
     import torch
 
     from messyerraytracer_tpu_torch.core.brute import parity
@@ -118,11 +177,39 @@ def compare_kernel_plain(rays, cs, chunk=None, **kw):
     return err, plain_ms
 
 
-def small_scenes(device):
-    from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
-        build_cluster_tlas)
-    from messyerraytracer_tpu_torch.scene.scene import (
-        build_scene_from_tri_array)
+def compare_wide_plain(rays, ws, chunk=None, **kw):
+    """Run kernel B4 and its plain version on the same rays; check the
+    hits by the parity rule, occlusion, per-ray tri_tests, pops and
+    stack_drops exactly.  Returns (max_abs_err, plain ms, kernel
+    outputs)."""
+    import torch
+
+    from messyerraytracer_tpu_torch.core.brute import parity
+    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
+        PLAIN_CHUNK, _hits_from_slots, wide_cast_cuda, wide_cast_plain)
+
+    args = (rays.origin, rays.direction, rays.t_min, rays.t_max, ws)
+    k = wide_cast_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    p = wide_cast_plain(*args, chunk=chunk or PLAIN_CHUNK, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    (fk, ik, ck), (fp, ip, cp) = k, p
+    hk = _hits_from_slots(fk, ik, rays, ws)[0]
+    hp = _hits_from_slots(fp, ip, rays, ws)[0]
+    check(torch.equal(hk.hit, hp.hit), f"B4 occluded kernel == plain {kw}")
+    if not kw.get("any_hit"):
+        check(parity(hk, hp), f"B4 kernel vs plain parity {kw}")
+    check(torch.equal(ik[1], ip[1]), f"B4 tri_tests kernel == plain {kw}")
+    check(torch.equal(ck, cp), f"B4 pops/stack_drops kernel == plain {kw}")
+    err = float((fk - fp).abs().max()) if fk.numel() else 0.0
+    return err, plain_ms, k
+
+
+def small_flat_tris():
+    """The ~22K-triangle flat test scene: a wavy plane (layer 1) and a
+    sphere (layer 2)."""
     from messyerraytracer_tpu_torch.utils import meshes
 
     g = meshes.plane(16.0, y=0.0, subdiv=80)
@@ -130,8 +217,18 @@ def small_scenes(device):
     sph = meshes.uv_sphere(2.0, 48, 96, center=(0, 2.5, 0))
     layers = np.concatenate([np.full(len(g), 0b01, np.int32),
                              np.full(len(sph), 0b10, np.int32)])
-    flat = build_scene_from_tri_array(np.concatenate([g, sph]),
-                                      layers=layers, device=device)
+    return np.concatenate([g, sph]), layers
+
+
+def small_scenes(device):
+    from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
+        build_cluster_tlas)
+    from messyerraytracer_tpu_torch.scene.scene import (
+        build_scene_from_tri_array)
+    from messyerraytracer_tpu_torch.utils import meshes
+
+    tris, layers = small_flat_tris()
+    flat = build_scene_from_tri_array(tris, layers=layers, device=device)
 
     def xform(t, s=1.0):
         m = np.zeros((3, 4), np.float32)
@@ -227,18 +324,57 @@ def headline_tlas(device):
 
 def frame_rays(device):
     """The headline 1920x1080 frame, block-swizzled (bench.py:34-45)."""
+    import torch
+
     import messyerraytracer_tpu_torch as mrt
     from messyerraytracer_tpu_torch.dispatch.morton import (
         raster_block_permutation)
 
     w, h = FRAME
     cam = mrt.CameraParams.look_at((0, 26, 55), (0, 1, 0), fov_degrees=60.0)
-    perm = raster_block_permutation(w, h, 32)
-    return mrt.generate_rays(cam, w, h).take(perm).to(device)
+    perm = torch.as_tensor(raster_block_permutation(w, h, 32),
+                           device=device).long()
+    return mrt.generate_rays(cam, w, h, device=device).take(perm)
 
 
-def phase_main_path(card: str, device) -> dict:
-    """Phase 2: the headline main path at full size."""
+def cluster_bound(cs, rays, fout, iout, counters):
+    """B1's bound on this run's inputs: rays, scene tables and outputs
+    moved once; slab tests of 8 children per pop and one Plucker test per
+    counted triangle test."""
+    import torch
+
+    from messyerraytracer_tpu_torch.kernels.cluster_tlas import ClusterTLAS
+
+    tables = [cs.node_box, cs.node_child, cs.node_axis, cs.tri, cs.tri_prim,
+              cs.tri_layers, cs.cl_anchor, cs.cl_count]
+    if isinstance(cs, ClusterTLAS):
+        tables += [cs.inst_cbase, cs.iprim, cs.iinv, cs.ifwd]
+    moved = nbytes(rays.origin, rays.direction, rays.t_min, rays.t_max,
+                   fout, iout, *tables)
+    ops = (int(counters[0]) * 8 * SLAB_OPS
+           + int(iout[2].sum(dtype=torch.int64)) * PLUCKER_OPS)
+    return bound(moved, ops)
+
+
+def wide_bound(ws, rays, fout, iout, counters, quantized=False):
+    """B4's bound on this run's inputs: rays, scene tables and outputs
+    moved once; K slab tests per pop and one Moller-Trumbore test per
+    counted triangle test."""
+    import torch
+
+    nodes = (list(ws.quantized()) if quantized else [ws.node_box])
+    moved = nbytes(rays.origin, rays.direction, rays.t_min, rays.t_max,
+                   fout, iout, *nodes, ws.node_child, ws.node_axis,
+                   ws.leaf_tri, ws.leaf_count)
+    ops = (int(counters[0]) * ws.branching * SLAB_OPS
+           + int(iout[1].sum(dtype=torch.int64)) * MT_OPS)
+    return bound(moved, ops)
+
+
+def phase_main_path(card: str, device):
+    """Phase 2: the headline cluster main path at full size.  Returns B1's
+    summary and what phase 4 reuses (world triangles, frame, the brute
+    oracle's hits on the subsample)."""
     import torch
 
     from messyerraytracer_tpu_torch.core.brute import cast_rays_brute, parity
@@ -297,18 +433,182 @@ def phase_main_path(card: str, device) -> dict:
     print(f"[{card}] instanced_vs_flat {dt_f / dt_i}", flush=True)
 
     # ---- kernel B1 against its plain version at both frame shapes; the
-    # summary keeps the instanced times and the larger error of the two
+    # summary keeps the instanced times and bound and the larger error
     k = {"launches": launches, "max_abs_err": 0.0}
     for name, cs in (("instanced", tlas._ctlas), ("flat", flat.cluster)):
         args = (rays.origin, rays.direction, rays.t_min, rays.t_max, cs)
         ms = cuda_ms(lambda: cluster_cast_cuda(*args), 5)
         err, plain_ms = compare_kernel_plain(rays, cs, chunk=1 << 20)
+        bms, by = cluster_bound(cs, rays, *cluster_cast_cuda(*args))
         print(f"[{card}] kernel B1 {name} frame (T={cs.tcap}): kernel "
-              f"{ms} ms, plain {plain_ms} ms, kernel == plain, max_abs_err "
-              f"{err}", flush=True)
+              f"{ms} ms, plain {plain_ms} ms, bound {bms} ms ({by}), "
+              f"kernel == plain, max_abs_err {err}", flush=True)
         k["max_abs_err"] = max(k["max_abs_err"], err)
         if name == "instanced":
-            k["ms"], k["plain_ms"] = ms, plain_ms
+            k.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    k["library_ms"] = None       # no single PyTorch call casts over a BVH
+    ctx = {"world_tris": world_tris, "rays": rays, "sub": sub, "hb": hb,
+           "tlas": tlas, "flat": flat}
+    return k, ctx
+
+
+def phase_wide_vs_plain(card: str, device) -> None:
+    """Phase 3: kernel B4 against its plain version on the card."""
+    import torch
+
+    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
+        cast_rays_wide, wide_cast_cuda)
+    from messyerraytracer_tpu_torch.scene.scene import (
+        build_scene_from_tri_array)
+
+    tris, layers = small_flat_tris()
+    rays = random_rays(8192, 2, 8.0, device)
+    before = wide_cast_cuda.launches
+    worst = 0.0
+    for branching in (8, 2):
+        ws = build_scene_from_tri_array(tris, layers=layers,
+                                        backend="pallas",
+                                        branching=branching,
+                                        device=device).wide
+        cases = [{}, {"any_hit": True}, {"query_mask": 0b10}, {"kstack": 1}]
+        if branching == 8:
+            cases.append({"quantized": True})
+        for kw in cases:
+            err, _, (fk, ik, ck) = compare_wide_plain(rays, ws, **kw)
+            worst = max(worst, err)
+            if kw.get("kstack") == 1:
+                check(int(ck[1]) > 0, "B4 forced small stack drops")
+            print(f"[{card}] phase 3 branching {branching} "
+                  f"{kw or 'closest'}: kernel == plain, max_abs_err {err}, "
+                  f"stack_drops {int(ck[1])}", flush=True)
+            if not kw:
+                closest = (fk, ik)
+        # B5's contract: the streamed cast launches the same kernel
+        n0 = wide_cast_cuda.launches
+        hs, ss, _ = cast_rays_wide(rays, ws, stream_leaves=True,
+                                   stream_nodes=True)
+        torch.cuda.synchronize()
+        check(wide_cast_cuda.launches == n0 + 1, "streamed cast launched B4")
+        check(torch.equal(hs.t, closest[0][0])
+              and torch.equal(hs.prim_id >= 0, closest[1][0] >= 0),
+              "streamed cast == closest-hit kernel (== plain)")
+        check(int(ss.stack_drops) == 0, "streamed cast stack_drops == 0")
+        print(f"[{card}] phase 3 branching {branching} streamed "
+              f"(stream_leaves, stream_nodes): == kernel == plain",
+              flush=True)
+    check(wide_cast_cuda.launches > before, "B4 launch count rose")
+    print(f"[{card}] phase 3 ok: worst max_abs_err {worst}", flush=True)
+
+
+def phase_pallas_path(card: str, device, ctx: dict) -> dict:
+    """Phase 4: the pallas path at full size, and B3's entry points."""
+    import torch
+
+    from messyerraytracer_tpu_torch.core.brute import parity
+    from messyerraytracer_tpu_torch.kernels.cluster import cast_rays_cluster
+    from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
+        cast_rays_cluster_tlas)
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cast_rays_cluster_tlas_v2, cast_rays_cluster_v2, cluster_cast_cuda)
+    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
+        cast_rays_wide, wide_cast_cuda)
+    from messyerraytracer_tpu_torch.kernels.wide import build_wide_scene
+    from messyerraytracer_tpu_torch.scene.scene import (
+        build_scene_from_tri_array)
+
+    rays, sub, hb = ctx["rays"], ctx["sub"], ctx["hb"]
+    n = rays.count
+    t0 = time.time()
+    scene = build_scene_from_tri_array(ctx["world_tris"], backend="pallas",
+                                       device=device)
+    ws = scene.wide
+    build_s = time.time() - t0
+    print(f"[{card}] pallas scene (8-wide): {ws.node_child.shape[0]} nodes, "
+          f"{ws.num_leaves} leaves, stack_need {ws.stack_need}, stream "
+          f"flags {ws.stream_leaves}/{ws.stream_nodes}, build {build_s} s",
+          flush=True)
+
+    # ---- the pallas path's own run: counts reset just before, read after
+    wide_cast_cuda.launches = 0
+    cluster_cast_cuda.launches = 0
+    hits, stats = scene.cast_rays(rays)
+    occ = scene.any_hit_rays(rays)
+    torch.cuda.synchronize()
+    launches = wide_cast_cuda.launches
+    check(launches > 0, "pallas path launched kernel B4")
+    check(cluster_cast_cuda.launches == 0, "pallas path did not launch B1")
+    check(int(stats.stack_drops) == 0, "pallas 1080p: stack_drops == 0")
+    check(bool(torch.isfinite(hits.t).all()), "pallas 1080p: finite t")
+    check(torch.equal(occ, hits.hit), "any-hit occluded == closest hit")
+    print(f"[{card}] pallas 1080p: hit_rate {float(hits.hit.float().mean())}"
+          f", stack_drops {int(stats.stack_drops)}, tri_tests/ray "
+          f"{int(stats.tri_tests) / n}, pops/ray "
+          f"{int(stats.bvh_nodes_visited) / n}; B4 launches {launches}, B1 "
+          f"launches {cluster_cast_cuda.launches}", flush=True)
+    ok = parity(scene.cast_rays(sub)[0], hb)
+    print(f"[{card}] parity pallas (8-wide) vs brute (4096 rays): {ok}",
+          flush=True)
+    check(ok, "pallas parity vs brute")
+    check(torch.equal(scene.any_hit_rays(sub), hb.hit),
+          "pallas any-hit vs brute")
+
+    # ---- timing: the cast entry point, then B4 alone and its plain version
+    dt = cuda_ms(lambda: scene.cast_rays(rays), 5)
+    print(f"[{card}] pallas cast 1080p: {dt} ms/frame, {n / dt / 1e3} "
+          f"Mrays/s", flush=True)
+    args = (rays.origin, rays.direction, rays.t_min, rays.t_max, ws)
+    ms = cuda_ms(lambda: wide_cast_cuda(*args), 5)
+    err, plain_ms, out = compare_wide_plain(rays, ws, chunk=1 << 20)
+    bms, by = wide_bound(ws, rays, *out)
+    print(f"[{card}] kernel B4 8-wide frame: kernel {ms} ms, plain "
+          f"{plain_ms} ms, bound {bms} ms ({by}), kernel == plain, "
+          f"max_abs_err {err}", flush=True)
+    k = {"launches": launches, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+         "library_ms": None}
+
+    # ---- the binary and quantized layouts at the same scene
+    ws2 = build_wide_scene(scene.bvh, scene.tris, device=device)
+    part = rays.take(torch.arange(min(SLICE, n), device=device))
+    for name, w, kw in (("binary", ws2, {}), ("quantized", ws,
+                                              {"quantized": True})):
+        hs, _, _ = cast_rays_wide(sub, w,
+                                  columnar="q" if kw else None)
+        ok = parity(hs, hb)
+        print(f"[{card}] parity pallas ({name}) vs brute (4096 rays): {ok}",
+              flush=True)
+        check(ok, f"pallas {name} parity vs brute")
+        a2 = (rays.origin, rays.direction, rays.t_min, rays.t_max, w)
+        ms2 = cuda_ms(lambda: wide_cast_cuda(*a2, **kw), 5)
+        fo, io, co = wide_cast_cuda(*a2, **kw)
+        check(int(co[1]) == 0, f"{name} frame stack_drops == 0")
+        bms2, by2 = wide_bound(w, rays, fo, io, co, **kw)
+        err2, plain2, _ = compare_wide_plain(part, w, **kw)
+        k["max_abs_err"] = max(k["max_abs_err"], err2)
+        print(f"[{card}] kernel B4 {name} frame: kernel {ms2} ms, bound "
+              f"{bms2} ms ({by2}), tri_tests/ray "
+              f"{int(io[1].sum(dtype=torch.int64)) / n}, pops/ray "
+              f"{int(co[0]) / n}, stack_need {w.stack_need}; kernel == "
+              f"plain on {SLICE} rays (plain {plain2} ms), max_abs_err "
+              f"{err2}", flush=True)
+
+    # ---- B3: the v1 cluster entry points run on B1
+    flat, tlas = ctx["flat"], ctx["tlas"]
+    cluster_cast_cuda.launches = 0
+    h1, s1, _ = cast_rays_cluster(rays, flat.cluster)
+    hi1, _, _, ii1 = cast_rays_cluster_tlas(rays, tlas._ctlas)
+    torch.cuda.synchronize()
+    b3 = cluster_cast_cuda.launches
+    check(b3 == 2, "B3 entry points launched B1")
+    h2, s2, _ = cast_rays_cluster_v2(rays, flat.cluster)
+    hi2, _, _, ii2 = cast_rays_cluster_tlas_v2(rays, tlas._ctlas)
+    check(torch.equal(h1.t, h2.t) and torch.equal(h1.prim_id, h2.prim_id)
+          and int(s1.tri_tests) == int(s2.tri_tests),
+          "cast_rays_cluster == cast_rays_cluster_v2")
+    check(torch.equal(hi1.t, hi2.t) and torch.equal(ii1, ii2),
+          "cast_rays_cluster_tlas == cast_rays_cluster_tlas_v2")
+    print(f"[{card}] B3 entry points: B1 launches {b3}, hits == v2's",
+          flush=True)
     return k
 
 
@@ -319,24 +619,34 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA card "
                          "(torch.cuda.is_available() is false)")
     # fails here, before printing anything, outside a checkout of the repo
-    from messyerraytracer_tpu_torch.kernels.cluster_v2 import cuda_library
+    import messyerraytracer_tpu_torch  # noqa: F401
 
+    t_start = time.time()
     card = card_name_and_power()
     print(f"card: {card}", flush=True)
     device = torch.device("cuda", 0)
-    t0 = time.time()
-    cuda_library()
-    print(f"[{card}] kernel build {time.time() - t0} s", flush=True)
+    build_kernels(card)
     phase_kernel_vs_plain(card, device)
-    k = phase_main_path(card, device)
-    print(json.dumps({"kernels": [{
-        "name": "cluster_cast",
-        "route": "cuda",
-        "source": "messyerraytracer_tpu_torch/kernels/csrc/cluster_cast.cu",
-        "replaces": "messyerraytracer_tpu/kernels/cluster_v2.py:81 "
-                    "(+ messyerraytracer_tpu/kernels/cluster.py:1262, "
-                    "fused)",
-        **k}]}), flush=True)
+    k1, ctx = phase_main_path(card, device)
+    phase_wide_vs_plain(card, device)
+    k4 = phase_pallas_path(card, device, ctx)
+    print(f"[{card}] chip_smoke total {time.time() - t_start} s",
+          flush=True)
+    src = "messyerraytracer_tpu_torch/kernels/csrc/"
+    print(json.dumps({"kernels": [
+        {"name": "cluster_cast", "route": "cuda",
+         "source": src + "cluster_cast.cu",
+         "replaces": "messyerraytracer_tpu/kernels/cluster_v2.py:81 "
+                     "(+ messyerraytracer_tpu/kernels/cluster.py:1262, "
+                     "fused; messyerraytracer_tpu/kernels/cluster.py:564's "
+                     "entry points)",
+         **k1},
+        {"name": "wide_cast", "route": "cuda",
+         "source": src + "wide_cast.cu",
+         "replaces": "messyerraytracer_tpu/kernels/traverse_pallas.py:555 "
+                     "(+ messyerraytracer_tpu/kernels/traverse_pallas.py:87"
+                     "'s streamed casts)",
+         **k4}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,11 @@
 
 The PyTorch counterpart of ``messyerraytracer_tpu``: same module paths,
 same public names and the same hit semantics (t, position, normal, u/v,
-prim_id, layer masks), with the traversal kernel written by hand in CUDA
-for Hopper (``kernels/csrc/cluster_cast.cu``) and a plain PyTorch version
-of every kernel beside it for CPU tensors.
+prim_id, layer masks), with the traversal kernels written by hand in
+CUDA for Hopper (``kernels/csrc/cluster_cast.cu`` for the cluster tables,
+``kernels/csrc/wide_cast.cu`` for the wide-node tables) and a plain
+PyTorch version of every kernel beside it for CPU tensors.  Builders and
+ray generators put their tensors on the card unless given ``device=``.
 
 This package imports torch and numpy only; it never imports jax or the
 JAX package.

@@ -22,6 +22,8 @@ import sys
 import numpy as np
 import torch
 
+from ..core.types import DEFAULT_DEVICE
+
 BVH_BINS = 12
 MAX_LEAF_SIZE = 4
 
@@ -56,7 +58,7 @@ class BVH:
 
 
 def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
-              use_native: bool = True, device="cpu") -> BVH:
+              use_native: bool = True, device=DEFAULT_DEVICE) -> BVH:
     """Build a binned-SAH BVH over triangles given by vertex arrays (N,3).
 
     The caller applies ``tri_order`` to its triangle SoA so leaf ranges
@@ -78,7 +80,7 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
 
 
 def _finalize_bvh(node_min, node_max, left_first, count, depth, axis,
-                  order, device="cpu") -> BVH:
+                  order, device=DEFAULT_DEVICE) -> BVH:
     del depth  # per-level lists serve the refit, which waits (ROADMAP A.2)
     host = {
         "aabb_min": node_min.astype(np.float32),
@@ -97,7 +99,8 @@ def _finalize_bvh(node_min, node_max, left_first, count, depth, axis,
 
 def build_bvh_over_aabbs(tri_min, tri_max, centroid,
                          max_leaf_size: int = MAX_LEAF_SIZE,
-                         use_native: bool = True, device="cpu") -> BVH:
+                         use_native: bool = True,
+                         device=DEFAULT_DEVICE) -> BVH:
     """Binned-SAH build over arbitrary primitive AABBs + centroids (the
     cluster-TLAS pair tree uses ``max_leaf_size=1``).
 

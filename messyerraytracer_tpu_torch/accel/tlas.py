@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.types import ALL_LAYERS, Hits, Rays
+from ..core.types import ALL_LAYERS, DEFAULT_DEVICE, Hits, Rays
 from ..scene.scene import RayScene, build_scene
 
 
@@ -90,7 +90,7 @@ class SceneTLAS:
     """Top-level structure over BLAS instances: ``add_mesh`` ->
     ``add_instance`` -> ``build_tlas`` / ``build_instanced``."""
 
-    def __init__(self, backend: str = "cluster", device="cpu"):
+    def __init__(self, backend: str = "cluster", device=DEFAULT_DEVICE):
         self.backend = backend
         self.device = torch.device(device)
         self.meshes: list[MeshBLAS] = []

@@ -30,6 +30,9 @@ MT_DET_EPS = 1e-8
 MT_BARY_EPS = 4e-6
 NO_HIT = -1
 ALL_LAYERS = -1
+# Builders and generators put their tensors on the card unless the caller
+# passes ``device=`` (``"cpu"`` for the plain versions).
+DEFAULT_DEVICE = torch.device("cuda")
 
 
 @dataclasses.dataclass
@@ -68,8 +71,13 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def make_rays(origin, direction, t_min=None, t_max=None,
-              device="cpu") -> Rays:
-    """Build a ``Rays`` batch with reference-default t bounds."""
+              device=None) -> Rays:
+    """Build a ``Rays`` batch with reference-default t bounds, on
+    ``device``; None means the device of ``origin`` when it is a tensor,
+    else ``DEFAULT_DEVICE``."""
+    if device is None:
+        device = (origin.device if isinstance(origin, torch.Tensor)
+                  else DEFAULT_DEVICE)
     origin = _f32(origin, device)
     direction = _f32(direction, device)
     if origin.ndim == 1:
@@ -134,7 +142,7 @@ class Hits:
         return self.t.shape[0]
 
 
-def make_miss(n: int, device="cpu") -> Hits:
+def make_miss(n: int, device=DEFAULT_DEVICE) -> Hits:
     """All-miss hit batch."""
     f3 = torch.zeros((n, 3), dtype=torch.float32, device=device)
     return Hits(
@@ -193,7 +201,7 @@ def triangle_fields_np(v0, v1, v2):
 
 
 def make_triangles(v0, v1, v2, prim_id=None, layers=None,
-                   device="cpu") -> Triangles:
+                   device=DEFAULT_DEVICE) -> Triangles:
     """Build a ``Triangles`` batch, precomputing edges and face normals on
     the host and putting the finished arrays on ``device``."""
     v0, e1, e2, nrm = triangle_fields_np(v0, v1, v2)
@@ -212,8 +220,8 @@ def make_triangles(v0, v1, v2, prim_id=None, layers=None,
 class RayStats:
     """Per-cast counters, each a 0-dim int64 tensor on the cast's device.
 
-    stack_drops counts traversal-stack pushes the cluster kernel had to
-    drop (stack full).  The stack is sized from the build-time worst case
+    stack_drops counts traversal-stack pushes a cast had to drop (stack
+    full).  The stack is sized from the build-time worst case
     so this is 0 by construction; a nonzero value means the cast may have
     missed hits and MUST fail any parity gate.
     """

@@ -33,14 +33,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from .wide import NODE8_STRIDE, WIDE8_CAP, _collapse8
+from ..core.types import DEFAULT_DEVICE
+from .wide import ABSENT, NODE8_STRIDE, WIDE8_CAP, _upper_node_tables
 
 TCAP_DEFAULT = 64       # triangles per cluster
 LOCAL_BITS = 13         # instanced leaf payload: gid = inst << 13 | local
 LOCAL_MASK = (1 << LOCAL_BITS) - 1   # => <= 8192 clusters/mesh
 KSTACK = 64             # traversal stack floor (scenes size it up from
 #                         their build-time worst case, _kstack_for)
-ABSENT = -1             # child code of an empty child slot
 
 
 def cluster_tcap_for(num_tris: int) -> int:
@@ -147,65 +147,6 @@ def _kstack_for(stack_need: int) -> int:
     return max(KSTACK, int(stack_need) + 2)
 
 
-def _wide_stack_need(children, internal_kid):
-    """Worst-case transient DFS stack depth of the wide8 upper tree,
-    counted the way the cast pushes (all internal children of a popped
-    node land on the stack before the next pop).
-
-    ``children``: (nw, WIDE8_CAP) binary-node ids (-1 absent), row w =
-    wide node w; ``internal_kid``: same-shape bool, True where the child
-    is an internal wide node.  When wide node ``w`` is processed with
-    ``d`` entries beneath it the peak is ``d + k(w)``; each of its
-    internal kids is later processed with at most ``d + k(w) - 1``
-    entries beneath — conservative over both push orders."""
-    kid_rows = children[internal_kid]
-    wide_row_of = {int(b): i + 1 for i, b in enumerate(kid_rows)}
-    kcnt = internal_kid.sum(axis=1).astype(np.int64)
-    need = 1                                     # root entry at init
-    work = [(0, 0)]
-    while work:
-        w, d = work.pop()
-        k = int(kcnt[w])
-        if d + k > need:
-            need = d + k
-        if k:
-            row = children[w]
-            for j in range(row.shape[0]):
-                if internal_kid[w, j]:
-                    work.append((wide_row_of[int(row[j])], d + k - 1))
-    return int(need)
-
-
-def _upper_node_tables(amin, amax, lf, cnt, is_cluster, cluster_of):
-    """8-wide node tables of the upper tree (cluster roots are its
-    leaves; a leaf's payload is ``cluster_of``).  Returns
-    (node_box, node_child, node_axis, nw, stack_need)."""
-    m = amin.shape[0]
-    ucnt = np.where(is_cluster, 1, 0).astype(np.int32)
-    children, waxes = _collapse8(amin, amax, lf, ucnt)
-    children = np.asarray(children, np.int32)
-    nw = children.shape[0]
-
-    wide_of = np.full(m, -1, np.int32)
-    order = children[children >= 0]
-    internal_kids = order[ucnt[order] == 0]
-    wide_of[0] = 0
-    wide_of[internal_kids] = np.arange(1, len(internal_kids) + 1,
-                                       dtype=np.int32)
-
-    present = children >= 0
-    ck = np.where(present, children, 0)
-    ptr = np.where(is_cluster[ck], cluster_of[ck], wide_of[ck])
-    node_child = np.where(present, 2 * ptr + is_cluster[ck],
-                          ABSENT).astype(np.int32)
-    node_box = np.concatenate(
-        [amin[ck], amax[ck]], axis=-1).astype(np.float32)   # (nw, 8, 6)
-    node_box[~present] = np.nan
-    stack_need = _wide_stack_need(children, present & ~is_cluster[ck])
-    return (node_box, node_child, np.asarray(waxes, np.int32), nw,
-            stack_need)
-
-
 def _cluster_tables_np(amin, amax, lf, cnt, _np, tcap: int):
     """All tables of one cluster scene in numpy.
 
@@ -271,7 +212,7 @@ def build_cluster_scene(bvh, tris, _np=None, tcap: int = TCAP_DEFAULT,
 
     Every table is arranged in numpy on the host (the JAX package's
     ``host_arrange`` path, at every size) and put on ``device`` (default:
-    the device of ``tris``, else the CPU).  ``_np`` optionally gives host
+    the device of ``tris``, else ``DEFAULT_DEVICE``).  ``_np`` optionally gives host
     copies (v0, e1, e2, normal, prim_id, layers) in slot order."""
     host = bvh.host
     if _np is None:
@@ -279,7 +220,7 @@ def build_cluster_scene(bvh, tris, _np=None, tcap: int = TCAP_DEFAULT,
             tris.v0, tris.edge1, tris.edge2, tris.normal, tris.prim_id,
             tris.layers))
     if device is None:
-        device = tris.v0.device if tris is not None else "cpu"
+        device = tris.v0.device if tris is not None else DEFAULT_DEVICE
     tables, meta = _cluster_tables_np(
         host["aabb_min"], host["aabb_max"], host["left_first"],
         host["count"], _np, tcap)
@@ -324,7 +265,7 @@ def _clusters_from_jax(slabs: np.ndarray, tcap: int) -> dict:
 
 def cluster_scene_from_jax(nodes, ablocks, *, tcap: int, dummy_enc: int,
                            num_clusters: int, stack_need: int,
-                           device="cpu") -> ClusterScene:
+                           device=DEFAULT_DEVICE) -> ClusterScene:
     """The port's tables from the numpy arrays of a JAX ``ClusterScene``
     (its ``nodes`` and ``ablocks`` plus metadata), so both packages can
     cast over the same scene state."""
@@ -335,3 +276,29 @@ def cluster_scene_from_jax(nodes, ablocks, *, tcap: int, dummy_enc: int,
                         dummy_enc=int(dummy_enc),
                         num_clusters=int(num_clusters),
                         stack_need=int(stack_need))
+
+
+# ---------------------------------------------------------------------------
+# the v1 cast entry point, on kernel B1
+# ---------------------------------------------------------------------------
+
+def cast_rays_cluster(rays, cs: ClusterScene, query_mask: int = -1,
+                      any_hit: bool = False, interpret=None, srows=None,
+                      qd=None, inner=None, gr=None, probe: str = "",
+                      return_per_ray: bool = False):
+    """The JAX package's v1 cluster cast, on kernel B1.
+
+    The JAX v2 kernel is bit-identical to v1 by construction (its
+    cluster_v2.py:18-22), so the port serves both with one kernel.
+    Returns (hits, stats, occluded[, {"tri_tests"}]) as JAX v1 does.  The
+    TPU schedule knobs (interpret, srows, qd, inner, gr) are accepted and
+    ignored; ``probe`` timing modes raise."""
+    from .cluster_v2 import cast_rays_cluster_v2   # it imports this module
+
+    del interpret, srows, qd, inner, gr
+    out = cast_rays_cluster_v2(rays, cs, query_mask, any_hit, probe=probe,
+                               return_per_ray=return_per_ray)
+    if return_per_ray:
+        hits, stats, found, per_ray = out
+        return hits, stats, found, {"tri_tests": per_ray["tri_tests"]}
+    return out

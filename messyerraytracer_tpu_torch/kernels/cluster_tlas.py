@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..accel.bvh import build_bvh, build_bvh_over_aabbs
-from ..core.types import ALL_LAYERS
+from ..core.types import ALL_LAYERS, DEFAULT_DEVICE
 from .cluster import (
     LOCAL_BITS,
     LOCAL_MASK,
@@ -36,8 +36,8 @@ from .cluster import (
     _cluster_tables_np,
     _nodes_from_jax,
     _put,
-    _upper_node_tables,
 )
+from .wide import _upper_node_tables
 
 MAX_INSTANCES = 1 << (23 - LOCAL_BITS)   # 1024
 
@@ -124,7 +124,7 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
                        tcap: int = TCAP_DEFAULT,
                        mesh_layers: list | None = None,
                        inst_layers: list | None = None,
-                       device="cpu") -> ClusterTLAS:
+                       device=DEFAULT_DEVICE) -> ClusterTLAS:
     """Build the instanced tables.
 
     mesh_tris: list of (T, 3, 3) float vertex arrays (object space).
@@ -154,7 +154,7 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
     for mesh_id, g_ilayers in group_of:
         tri = np.asarray(mesh_tris[mesh_id], np.float32)
         v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
-        host = build_bvh(v0, v1, v2).host
+        host = build_bvh(v0, v1, v2, device=device).host
         perm = host["tri_order"]
         pv0, pv1, pv2 = v0[perm], v1[perm], v2[perm]
         e1, e2 = pv1 - pv0, pv2 - pv0
@@ -198,7 +198,7 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
     wmin, wmax = _pair_world_aabbs_np(pobj[:, 0:3], pobj[:, 3:6],
                                       fwd_rows[pinst])
     host = build_bvh_over_aabbs(wmin, wmax, (wmin + wmax) * 0.5,
-                                max_leaf_size=1).host
+                                max_leaf_size=1, device=device).host
     lf, cnt = host["left_first"], host["count"]
     is_leaf = cnt > 0
     gid_of_node = np.zeros(len(cnt), np.int32)
@@ -229,7 +229,8 @@ def set_transforms(ct: ClusterTLAS, transforms: list) -> ClusterTLAS:
 
 def cluster_tlas_from_jax(nodes, ablocks, islab, iprim, iinv, ifwd, *,
                           tcap: int, dummy_enc: int, stack_need: int,
-                          num_pairs: int = 0, device="cpu") -> ClusterTLAS:
+                          num_pairs: int = 0,
+                          device=DEFAULT_DEVICE) -> ClusterTLAS:
     """The port's instanced tables from the numpy arrays of a JAX
     ``ClusterTLAS``.  Its slabs hold one trailing all-zero dummy cluster
     per group; a real cluster always holds >= 1 triangle, so the dummies
@@ -251,3 +252,16 @@ def cluster_tlas_from_jax(nodes, ablocks, islab, iprim, iinv, ifwd, *,
                        num_clusters=int(real.sum()),
                        stack_need=int(stack_need), n_inst=len(islab),
                        num_pairs=int(num_pairs))
+
+
+def cast_rays_cluster_tlas(rays, ct: ClusterTLAS, query_mask: int = -1,
+                           any_hit: bool = False, interpret=None,
+                           srows=None, qd=None):
+    """The JAX package's v1 instanced cast, on kernel B1 (see
+    ``cluster.cast_rays_cluster``).  Returns (hits, stats, occluded,
+    instance_id); the TPU knobs (interpret, srows, qd) are accepted and
+    ignored."""
+    from .cluster_v2 import cast_rays_cluster_tlas_v2   # it imports this
+
+    del interpret, srows, qd
+    return cast_rays_cluster_tlas_v2(rays, ct, query_mask, any_hit)

@@ -2,12 +2,11 @@
 
 Two kinds of shared library are built into ``BUILD_DIR`` (git-ignored):
 
-  * the host-side binned-SAH BVH builder — the JAX package's
-    ``messyerraytracer_tpu/native/sah_builder.cpp``, compiled by file
-    path with g++ (importing ``messyerraytracer_tpu.native`` would run
-    that package's ``__init__``, which imports jax).  Hosts without g++
-    keep the numpy builder (accel/bvh.py) — host build code, not a
-    device path;
+  * the host-side binned-SAH BVH builder, ``sah_builder.cpp`` beside this
+    file (a verbatim copy of the JAX package's, so both packages build the
+    same trees while the port depends on no file of that package),
+    compiled with g++.  Hosts without g++ keep the numpy builder
+    (accel/bvh.py) — host build code, not a device path;
   * the CUDA kernels under ``kernels/csrc/``, compiled with nvcc for
     ``sm_90a`` into a library with a plain C interface
     (``build_shared_library``; bound by kernels/cluster_v2.py).
@@ -25,8 +24,8 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
-SAH_SRC = os.path.join(os.path.dirname(_PKG), "messyerraytracer_tpu",
-                       "native", "sah_builder.cpp")
+SAH_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "sah_builder.cpp")
 
 _LOCK = threading.Lock()
 _LIB = None

@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.types import Rays, make_rays
+from ..core.types import DEFAULT_DEVICE, Rays, make_rays
 
 
 def _normalize(v):
@@ -66,7 +66,7 @@ class CameraParams:
 
 
 def generate_rays(cam: CameraParams, width: int, height: int,
-                  jitter=(0.5, 0.5), device="cpu") -> Rays:
+                  jitter=(0.5, 0.5), device=DEFAULT_DEVICE) -> Rays:
     """Generate width*height rays in raster order (row-major, top-left
     first).  ``jitter`` is the sub-pixel offset in [0,1): a pair of
     scalars or of (H, W) arrays."""
@@ -100,7 +100,8 @@ def generate_rays(cam: CameraParams, width: int, height: int,
 
 
 def debug_grid_rays(origin, forward, grid_w: int = 16, grid_h: int = 12,
-                    fov_degrees: float = 60.0, device="cpu") -> Rays:
+                    fov_degrees: float = 60.0,
+                    device=DEFAULT_DEVICE) -> Rays:
     """The debug ray grid: camera basis from forward + world-up hint
     (fallback +X when |dot| > 0.99), pixel centers, v not flipped,
     row-major with y=0 row first."""

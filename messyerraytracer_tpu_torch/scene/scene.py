@@ -1,9 +1,11 @@
-"""Flat scene container — build triangles + BVH + cluster tables, cast rays.
+"""Flat scene container — build triangles + BVH + cast tables, cast rays.
 
 PyTorch counterpart of ``messyerraytracer_tpu/scene/scene.py``: owns the
-SoA triangle tensors (in BVH slot order), the BVH and the cluster tables,
-and exposes closest-hit / any-hit casts.  Backends ported so far:
-``cluster`` (the default; kernel B1 on CUDA) and ``brute`` (the oracle).
+SoA triangle tensors (in BVH slot order), the BVH and the tables of its
+backend, and exposes closest-hit / any-hit casts.  Backends: ``cluster``
+(the default; kernel B1 on CUDA), ``pallas`` (the wide-node tables; kernel
+B4 on CUDA), ``jnp`` (the per-ray binary-BVH traversal in plain PyTorch)
+and ``brute`` (the oracle).
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ import numpy as np
 import torch
 
 from ..accel.bvh import BVH, build_bvh
+from ..accel.traverse import cast_rays_bvh
 from ..core.brute import any_hit_brute, cast_rays_brute
 from ..core.types import (
     ALL_LAYERS,
+    DEFAULT_DEVICE,
     Hits,
     Rays,
     RayStats,
@@ -29,8 +33,10 @@ from ..kernels.cluster import (
     cluster_tcap_for,
 )
 from ..kernels.cluster_v2 import cast_rays_cluster_v2
+from ..kernels.traverse_pallas import cast_rays_wide
+from ..kernels.wide import WideScene, build_wide8_scene, build_wide_scene
 
-BACKENDS = ("cluster", "brute")
+BACKENDS = ("cluster", "pallas", "jnp", "brute")
 
 
 def _not_ported(backend: str):
@@ -49,6 +55,7 @@ class RayScene:
 
     tris: Triangles
     bvh: BVH
+    wide: WideScene | None = None
     cluster: ClusterScene | None = None
     use_bvh: bool = True       # False = brute-force validation mode
     backend: str = "cluster"
@@ -64,11 +71,17 @@ class RayScene:
         del incoherent
         if not self.use_bvh or self.backend == "brute":
             return cast_rays_brute(rays, self.tris, query_mask)
-        if self.backend == "cluster":
+        if self.backend in ("frontier", "frontier_q"):
+            raise _not_ported(self.backend)
+        if self.backend == "cluster" and self.cluster is not None:
             hits, stats, _ = cast_rays_cluster_v2(rays, self.cluster,
                                                   int(query_mask))
             return hits, stats
-        raise _not_ported(self.backend)
+        if self.backend == "pallas" and self.wide is not None:
+            hits, stats, _ = cast_rays_wide(rays, self.wide, int(query_mask))
+            return hits, stats
+        hits, stats, _ = cast_rays_bvh(rays, self.tris, self.bvh, query_mask)
+        return hits, stats
 
     def any_hit_rays(self, rays: Rays, query_mask=ALL_LAYERS,
                      incoherent: bool = False) -> torch.Tensor:
@@ -76,11 +89,19 @@ class RayScene:
         del incoherent
         if not self.use_bvh or self.backend == "brute":
             return any_hit_brute(rays, self.tris, query_mask)
-        if self.backend == "cluster":
+        if self.backend in ("frontier", "frontier_q"):
+            raise _not_ported(self.backend)
+        if self.backend == "cluster" and self.cluster is not None:
             _, _, occluded = cast_rays_cluster_v2(
                 rays, self.cluster, int(query_mask), any_hit=True)
             return occluded
-        raise _not_ported(self.backend)
+        if self.backend == "pallas" and self.wide is not None:
+            _, _, occluded = cast_rays_wide(rays, self.wide,
+                                            int(query_mask), any_hit=True)
+            return occluded
+        _, _, occluded = cast_rays_bvh(rays, self.tris, self.bvh,
+                                       query_mask, any_hit=True)
+        return occluded
 
     def refit(self, v0, v1, v2) -> "RayScene":
         raise NotImplementedError(
@@ -89,15 +110,19 @@ class RayScene:
 
 
 def build_scene(v0, v1, v2, layers=None, prim_id=None, use_bvh=True,
-                backend="cluster", device="cpu") -> RayScene:
+                backend="cluster", branching=8,
+                device=DEFAULT_DEVICE) -> RayScene:
     """Build a flat scene from (T,3) vertex arrays on ``device``.
 
     The BVH build and the table layout run on the host; the returned
-    tensors live on ``device``."""
+    tensors live on ``device``.  ``branching`` (8 or 2) picks the wide
+    layout of the ``pallas`` backend."""
     from .. import _tune_malloc
 
     if backend not in BACKENDS:
         raise _not_ported(backend)
+    if backend == "pallas" and branching not in (2, 8):
+        raise ValueError(f"branching must be 2 or 8, got {branching}")
     _tune_malloc()  # lazy, once: large-buffer heap reuse for this build
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
@@ -113,13 +138,44 @@ def build_scene(v0, v1, v2, layers=None, prim_id=None, use_bvh=True,
     host = (pv0, e1, e2, nrm, prim_id[perm], layers[perm])
     put = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     tris = Triangles(*(put(a) for a in host))
-    cluster = None
+    cluster = wide = None
     if backend == "cluster":
         cluster = build_cluster_scene(bvh, tris, _np=host,
                                       tcap=cluster_tcap_for(t),
                                       device=device)
-    return RayScene(tris=tris, bvh=bvh, cluster=cluster, use_bvh=use_bvh,
-                    backend=backend)
+    elif backend == "pallas":
+        builder = build_wide8_scene if branching == 8 else build_wide_scene
+        fit = _wide_vmem_fit(bvh, branching)
+        wide = builder(bvh, tris, _np=host, stream_leaves=fit != "resident",
+                       stream_nodes=fit == "stream_all", device=device)
+    return RayScene(tris=tris, bvh=bvh, wide=wide, cluster=cluster,
+                    use_bvh=use_bvh, backend=backend)
+
+
+# The JAX package's VMEM fit of the wide layout on a TPU v5e (its
+# scene.py:281-308): it decides the scene's stream_leaves / stream_nodes
+# flags, which the port carries so its scenes record the same flags.  They
+# change nothing on the card, where one kernel reads the scene from device
+# memory either way.
+_WIDE_VMEM_BUDGET = 96 * 1024 * 1024
+
+
+def _wide_vmem_fit(bvh: BVH, branching: int = 8) -> str:
+    # 'resident' | 'stream' | 'stream_all' -- how much of the layout fits
+    count = bvh.host["count"]
+    num_internal = int((count == 0).sum()) + 1
+    num_leaf = int((count > 0).sum()) + 1
+    if branching == 8:
+        nw = num_internal // 5 + 2
+        node_bytes = -(-nw // 2) * 512         # 2 nodes per 512B row
+    else:
+        node_bytes = -(-num_internal // 8) * 512  # 8 nodes per 512B row
+    leaf_bytes = -(-num_leaf // 2) * 512       # 2 leaves per 512B row
+    if node_bytes + leaf_bytes <= _WIDE_VMEM_BUDGET:
+        return "resident"
+    if node_bytes <= _WIDE_VMEM_BUDGET - 1024 * 1024:
+        return "stream"
+    return "stream_all"
 
 
 def build_scene_from_tri_array(tri_array, **kw) -> RayScene:

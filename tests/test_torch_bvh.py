@@ -1,6 +1,8 @@
 """PyTorch port: BVH build, native builder binding and the host-side cluster
 helpers, bit for bit against the JAX package."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -41,8 +43,14 @@ def assert_bvh_equal(bp, bj):
 def test_native_library_builds_from_the_jax_source():
     lib = pnative.get_native_lib()
     assert lib is not None
-    assert pnative.SAH_SRC.endswith("messyerraytracer_tpu/native/"
+    # the port compiles its own verbatim copy of the JAX package's source
+    assert pnative.SAH_SRC.endswith("messyerraytracer_tpu_torch/native/"
                                     "sah_builder.cpp")
+    jax_src = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                           "messyerraytracer_tpu", "native",
+                           "sah_builder.cpp")
+    with open(pnative.SAH_SRC, "rb") as a, open(jax_src, "rb") as b:
+        assert a.read() == b.read()
     assert pnative.BUILD_DIR.endswith("messyerraytracer_tpu_torch/_build")
 
 
@@ -50,7 +58,7 @@ def test_native_library_builds_from_the_jax_source():
 def test_build_bvh_matches_jax(scene):
     tris = soup(3000, 1) if scene == "soup" else terrain_tris(30)
     v = (tris[:, 0], tris[:, 1], tris[:, 2])
-    assert_bvh_equal(pbvh.build_bvh(*v), jbvh.build_bvh(*v))
+    assert_bvh_equal(pbvh.build_bvh(*v, device="cpu"), jbvh.build_bvh(*v))
 
 
 @pytest.mark.parametrize("max_leaf_size", [1, 4])
@@ -59,7 +67,8 @@ def test_build_bvh_over_aabbs_matches_jax(max_leaf_size):
     lo = rng.uniform(-20, 20, (700, 3)).astype(np.float32)
     hi = lo + rng.uniform(0.01, 2, (700, 3)).astype(np.float32)
     c = (lo + hi) * 0.5
-    assert_bvh_equal(pbvh.build_bvh_over_aabbs(lo, hi, c, max_leaf_size),
+    assert_bvh_equal(pbvh.build_bvh_over_aabbs(lo, hi, c, max_leaf_size,
+                                                device="cpu"),
                      jbvh.build_bvh_over_aabbs(lo, hi, c, max_leaf_size))
 
 
@@ -69,7 +78,8 @@ def test_numpy_builder_matches_jax():
     hi = np.maximum(np.maximum(tris[:, 0], tris[:, 1]), tris[:, 2])
     c = tris.mean(axis=1)
     assert_bvh_equal(
-        pbvh.build_bvh_over_aabbs(lo, hi, c, use_native=False),
+        pbvh.build_bvh_over_aabbs(lo, hi, c, use_native=False,
+                                  device="cpu"),
         jbvh.build_bvh_over_aabbs(lo, hi, c, use_native=False))
 
 
@@ -109,7 +119,7 @@ def test_stack_need_and_dummy_enc_match(tcap):
     from messyerraytracer_tpu_torch.scene.scene import (
         build_scene_from_tri_array)
 
-    ps = build_scene_from_tri_array(tris)
+    ps = build_scene_from_tri_array(tris, device="cpu")
     pcs = pcluster.build_cluster_scene(ps.bvh, ps.tris, tcap=tcap)
     assert pcs.stack_need == jcs.stack_need
     assert pcs.dummy_enc == jcs.dummy_enc
@@ -119,7 +129,7 @@ def test_stack_need_and_dummy_enc_match(tcap):
 
 def test_prim_id_guard_kept():
     tris = small_tris()
-    b = pbvh.build_bvh(*(tris[:, k] for k in range(3)))
+    b = pbvh.build_bvh(*(tris[:, k] for k in range(3)), device="cpu")
     n = len(tris)
     host = (tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0],
             None, np.full(n, 1 << 24, np.int32), np.full(n, -1, np.int32))
@@ -128,6 +138,7 @@ def test_prim_id_guard_kept():
 
 
 def test_refit_waits_for_its_slice():
-    b = pbvh.build_bvh(*(small_tris()[:, k] for k in range(3)))
+    b = pbvh.build_bvh(*(small_tris()[:, k] for k in range(3)),
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
         pbvh.refit_bvh(b, None, None)

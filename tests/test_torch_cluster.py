@@ -45,11 +45,11 @@ def converted(jcs):
     return cluster_scene_from_jax(
         np.asarray(jcs.nodes), np.asarray(jcs.ablocks), tcap=jcs.tcap,
         dummy_enc=jcs.dummy_enc, num_clusters=jcs.num_clusters,
-        stack_need=jcs.stack_need)
+        stack_need=jcs.stack_need, device="cpu")
 
 
 def port_cluster(tris, tcap, layers=None):
-    ps = build_scene_from_tri_array(tris, layers=layers)
+    ps = build_scene_from_tri_array(tris, layers=layers, device="cpu")
     return ps, build_cluster_scene(ps.bvh, ps.tris, tcap=tcap)
 
 

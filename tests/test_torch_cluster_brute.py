@@ -32,7 +32,7 @@ def terrain_scene():
     """~20K triangles: the displaced terrain plus a sphere."""
     tris = np.concatenate([terrain_tris(96, extent=16.0),
                            meshes.uv_sphere(2.0, 24, 48, center=(0, 2, 0))])
-    return build_scene_from_tri_array(tris)
+    return build_scene_from_tri_array(tris, device="cpu")
 
 
 def test_plain_cast_matches_brute_multi_tile(terrain_scene):
@@ -84,7 +84,7 @@ def test_edge_on_rays_no_cracks(tcap):
 
     g = meshes.plane(10.0, y=0.0, subdiv=16)
     g[:, :, 1] = (np.sin(g[:, :, 0] * 0.7) * np.cos(g[:, :, 2] * 0.6)) * 1.5
-    scene = build_scene_from_tri_array(g)
+    scene = build_scene_from_tri_array(g, device="cpu")
     cs = build_cluster_scene(scene.bvh, scene.tris, tcap=tcap)
     pts = shared_edge_points(np.asarray(g, np.float64))
     origin = np.float64([0.3, 9.0, 11.0])

@@ -32,7 +32,7 @@ def soup(n, seed=0):
 def tri_pair(tris, layers=None):
     t = (tris[:, 0], tris[:, 1], tris[:, 2])
     return (jtypes.make_triangles(*t, layers=layers),
-            ptypes.make_triangles(*t, layers=layers))
+            ptypes.make_triangles(*t, layers=layers, device="cpu"))
 
 
 @pytest.mark.parametrize("name", [
@@ -148,11 +148,13 @@ def test_zero_direction_and_empty_scene_miss():
     d = np.array([[0, 0, 0], [0, 0, 0], [1, 0, 0], [0, 0, 1]], np.float32)
     rays = port_rays(o, d)
     for h, _ in (pbrute.cast_rays_brute(rays, tri_pair(tris)[1]),
-                 build_scene_from_tri_array(tris).cast_rays(rays)):
+                 build_scene_from_tri_array(tris, device="cpu").cast_rays(
+                     rays)):
         assert not bool(h.hit[:2].any())
         for f in ("t", "u", "v", "normal", "position"):
             assert bool(torch.isfinite(getattr(h, f)).all())
-    empty = ptypes.make_triangles(*(np.zeros((0, 3), np.float32),) * 3)
+    empty = ptypes.make_triangles(*(np.zeros((0, 3), np.float32),) * 3,
+                                  device="cpu")
     h, s = pbrute.cast_rays_brute(rays, empty)
     assert not bool(h.hit.any()) and int(s.hits) == 0
     assert not bool(pbrute.any_hit_brute(rays, empty).any())
@@ -171,7 +173,7 @@ def test_brute_chunking_is_invisible():
 
 def test_parity_rule():
     def hits(t, prim):
-        h = ptypes.make_miss(len(t))
+        h = ptypes.make_miss(len(t), device="cpu")
         h.t = torch.tensor(t, dtype=torch.float32)
         h.prim_id = torch.tensor(prim, dtype=torch.int32)
         return h

@@ -55,12 +55,13 @@ def rays_pair(rj):
 def test_skill_canonical_drive_equals_jax():
     sphere = pmeshes.uv_sphere(radius=1.0, rings=16, segments=32)
     rj = jmrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 16, 12, 60.0)
-    rp = pmrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 16, 12, 60.0)
+    rp = pmrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 16, 12, 60.0,
+                              device="cpu")
     np.testing.assert_allclose(np_of(rp.direction), np_of(rj.direction),
                                atol=1e-7)
     tj = jmrt.make_triangles(sphere[:, 0], sphere[:, 1], sphere[:, 2])
     hj, _ = jax_brute(rj, tj)
-    scene = build_scene_from_tri_array(sphere)
+    scene = build_scene_from_tri_array(sphere, device="cpu")
     for h, _ in (scene.cast_rays(rp), cast_rays_brute(rp, scene.tris)):
         assert_same_hits(h, hj)
         mask = h.hit.numpy().reshape(12, 16)
@@ -82,7 +83,7 @@ def test_flat_scene_end_to_end_vs_jax_brute():
     rj = jax_rays(o, d)
     tj = jmrt.make_triangles(tris[:, 0], tris[:, 1], tris[:, 2],
                              layers=layers)
-    scene = build_scene_from_tri_array(tris, layers=layers)
+    scene = build_scene_from_tri_array(tris, layers=layers, device="cpu")
     for qm in (-1, 0b10):
         hj, _ = jax_brute(rj, tj, qm)
         h, s = scene.cast_rays(rays_pair(rj), qm)
@@ -91,7 +92,8 @@ def test_flat_scene_end_to_end_vs_jax_brute():
         np.testing.assert_array_equal(
             scene.any_hit_rays(rays_pair(rj), qm).numpy(),
             np_of(jax_any_hit_brute(rj, tj, qm)))
-    brute = build_scene_from_tri_array(tris, layers=layers, backend="brute")
+    brute = build_scene_from_tri_array(tris, layers=layers, backend="brute",
+                                       device="cpu")
     assert brute.cluster is None
     hb, _ = brute.cast_rays(rays_pair(rj))
     assert_same_hits(hb, jax_brute(rj, tj)[0], rtol=1e-6)
@@ -109,7 +111,7 @@ def test_scene_tlas_end_to_end_vs_jax():
     rng = np.random.default_rng(11)
     terrain = terrain_tris(12, extent=10.0)
     sphere = pmeshes.uv_sphere(1.0, 12, 12)
-    jt, pt = JaxSceneTLAS(backend="brute"), SceneTLAS()
+    jt, pt = JaxSceneTLAS(backend="brute"), SceneTLAS(device="cpu")
     for t in (jt, pt):
         t.add_mesh(terrain)
         t.add_mesh(sphere)
@@ -127,7 +129,7 @@ def test_scene_tlas_end_to_end_vs_jax():
     pt.build_instanced()
     cam = pmrt.CameraParams.look_at((0, 8, 14), (0, 1, 0), fov_degrees=60.0)
     perm = pmorton.raster_block_permutation(64, 48, 32)
-    rp = pmrt.generate_rays(cam, 64, 48).take(perm)
+    rp = pmrt.generate_rays(cam, 64, 48, device="cpu").take(perm)
     rj = jax_rays(np_of(rp.origin), np_of(rp.direction))
     hj, _, ij = jt.cast_rays(rj)                       # JAX flat brute
     hi, si, occ, ii = pt.cast_rays_instanced(rp)
@@ -149,13 +151,15 @@ def test_camera_and_swizzle_match_jax():
     pcam = pmrt.CameraParams.look_at((0, 26, 55), (0, 1, 0),
                                      fov_degrees=60.0)
     assert cam.origin == pcam.origin and cam.basis == pcam.basis
-    rj, rp = jmrt.generate_rays(cam, 96, 54), pmrt.generate_rays(pcam, 96, 54)
+    rj = jmrt.generate_rays(cam, 96, 54)
+    rp = pmrt.generate_rays(pcam, 96, 54, device="cpu")
     np.testing.assert_array_equal(np_of(rp.origin), np_of(rj.origin))
     np.testing.assert_allclose(np_of(rp.direction), np_of(rj.direction),
                                atol=1e-7)
     ocam = jmrt.CameraParams.look_at((0, 5, 5), (0, 0, 0), ortho=True)
     pocam = pmrt.CameraParams.look_at((0, 5, 5), (0, 0, 0), ortho=True)
-    oj, op = jmrt.generate_rays(ocam, 16, 8), pmrt.generate_rays(pocam, 16, 8)
+    oj = jmrt.generate_rays(ocam, 16, 8)
+    op = pmrt.generate_rays(pocam, 16, 8, device="cpu")
     np.testing.assert_allclose(np_of(op.origin), np_of(oj.origin), atol=1e-6)
     np.testing.assert_allclose(np_of(op.direction), np_of(oj.direction),
                                atol=1e-7)
@@ -175,9 +179,10 @@ def test_meshes_copy_matches_jax():
 
 def test_unported_backends_raise():
     tris = pmeshes.box()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        build_scene_from_tri_array(tris, backend="pallas")
-    scene = build_scene_from_tri_array(tris)
+    for backend in ("frontier", "frontier_q"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+            build_scene_from_tri_array(tris, backend=backend, device="cpu")
+    scene = build_scene_from_tri_array(tris, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
         scene.refit(tris[:, 0], tris[:, 1], tris[:, 2])
     scene.backend = "frontier"
@@ -191,7 +196,7 @@ def test_build_scene_keeps_prim_ids_and_layers():
     pid = np.arange(n, dtype=np.int32)[::-1] + 100
     lay = (np.arange(n) % 5 + 1).astype(np.int32)
     scene = build_scene(tris[:, 0], tris[:, 1], tris[:, 2], layers=lay,
-                        prim_id=pid)
+                        prim_id=pid, device="cpu")
     perm = scene.bvh.host["tri_order"]
     np.testing.assert_array_equal(scene.tris.prim_id.numpy(), pid[perm])
     o = np.tile(np.float32([[0, 0, 4]]), (3, 1))
@@ -205,11 +210,23 @@ def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import jax|from jax|import messyerraytracer_tpu"
                      r"\b(?!_torch)|from messyerraytracer_tpu\b(?!_torch))",
                      re.M)
+    # no path into the JAX package either: a string literal naming it (as
+    # "messyerraytracer_tpu" in os.path.join, or "messyerraytracer_tpu/..."
+    # in a path or an #include); docstrings and comments may cite its files
+    path = re.compile(r"[\"'][^\"'\n]*\bmessyerraytracer_tpu\b")
+    seen = set()
     for root, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    assert not pat.search(fh.read()), f
+            ext = os.path.splitext(f)[1]
+            if ext not in (".py", ".cpp", ".cu"):
+                continue
+            seen.add(ext)
+            with open(os.path.join(root, f)) as fh:
+                src = fh.read()
+            assert not path.search(src), f
+            if ext == ".py":
+                assert not pat.search(src), f
+    assert seen == {".py", ".cpp", ".cu"}
 
 
 def test_imports_and_casts_with_jax_blocked():
@@ -222,10 +239,12 @@ def test_imports_and_casts_with_jax_blocked():
         "build_scene_from_tri_array\n"
         "from messyerraytracer_tpu_torch.accel.tlas import SceneTLAS\n"
         "from messyerraytracer_tpu_torch.utils import meshes\n"
-        "s = build_scene_from_tri_array(meshes.uv_sphere(1.0, 8, 16))\n"
-        "r = mrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 8, 6, 60.0)\n"
+        "s = build_scene_from_tri_array(meshes.uv_sphere(1.0, 8, 16), "
+        "device='cpu')\n"
+        "r = mrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 8, 6, 60.0, "
+        "device='cpu')\n"
         "h, _ = s.cast_rays(r)\n"
-        "t = SceneTLAS()\n"
+        "t = SceneTLAS(device='cpu')\n"
         "t.add_instance(t.add_mesh(meshes.box()), np.eye(4))\n"
         "t.build_tlas()\n"
         "hi = t.cast_rays_instanced(r)[0]\n"
@@ -239,3 +258,87 @@ def test_imports_and_casts_with_jax_blocked():
                          cwd=os.path.dirname(PKG))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_port_alone_builds_its_native_builder(tmp_path):
+    """Only the port's package, with no JAX package beside it and jax
+    blocked: the native SAH builder compiles from the port's own copy of
+    its source, and a flat scene builds and casts through it."""
+    import shutil
+
+    dst = tmp_path / "messyerraytracer_tpu_torch"
+    shutil.copytree(PKG, dst, ignore=shutil.ignore_patterns(
+        "_build", "__pycache__"))
+    code = (
+        "import os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['messyerraytracer_tpu'] = None\n"
+        "import messyerraytracer_tpu_torch as mrt\n"
+        "from messyerraytracer_tpu_torch import native\n"
+        "from messyerraytracer_tpu_torch.scene.scene import "
+        "build_scene_from_tri_array\n"
+        "from messyerraytracer_tpu_torch.utils import meshes\n"
+        "here = os.path.dirname(mrt.__file__)\n"
+        "assert here == os.path.join(os.getcwd(), "
+        "'messyerraytracer_tpu_torch'), here\n"
+        "assert native.SAH_SRC == os.path.join(here, 'native', "
+        "'sah_builder.cpp')\n"
+        "assert native.get_native_lib() is not None\n"
+        "lib = os.path.join(native.BUILD_DIR, 'libmrt_native.so')\n"
+        "assert lib.startswith(here) and os.path.getmtime(lib) >= "
+        "os.path.getmtime(native.SAH_SRC)\n"
+        "s = build_scene_from_tri_array(meshes.uv_sphere(1.0, 8, 16), "
+        "device='cpu')\n"
+        "r = mrt.debug_grid_rays((0, 0, 4), (0, 0, -1), 8, 6, 60.0, "
+        "device='cpu')\n"
+        "assert int(s.cast_rays(r)[0].hit.sum()) > 0\n"
+        "assert not any(m.startswith('messyerraytracer_tpu.') "
+        "for m in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path,
+                         env={**os.environ, "PYTHONPATH": ""})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    from messyerraytracer_tpu_torch.accel import bvh as pbvh
+    from messyerraytracer_tpu_torch.core import types as ptypes
+    from messyerraytracer_tpu_torch.kernels import cluster as pcluster
+    from messyerraytracer_tpu_torch.kernels import cluster_tlas as pctlas
+    from messyerraytracer_tpu_torch.render import camera as pcamera
+
+    cuda = torch.device("cuda")
+    for fn in (build_scene, SceneTLAS.__init__, pbvh.build_bvh,
+               pbvh._finalize_bvh, pbvh.build_bvh_over_aabbs,
+               pctlas.build_cluster_tlas, pctlas.cluster_tlas_from_jax,
+               pcluster.cluster_scene_from_jax, ptypes.make_miss,
+               ptypes.make_triangles, pcamera.generate_rays,
+               pcamera.debug_grid_rays):
+        assert inspect.signature(fn).parameters["device"].default == cuda, fn
+    # make_rays follows a tensor argument, else the card
+    assert inspect.signature(
+        ptypes.make_rays).parameters["device"].default is None
+    o = torch.zeros((2, 3))
+    assert pmrt.make_rays(o, torch.ones((2, 3))).origin.device == o.device
+
+    tris = pmeshes.box()
+    cam = pmrt.CameraParams.look_at((0, 0, 3), (0, 0, 0), fov_degrees=30.0)
+    if torch.cuda.is_available():                  # decided here, not at import
+        assert build_scene_from_tri_array(tris).tris.v0.device.type == "cuda"
+        assert pmrt.generate_rays(cam, 4, 3).origin.device.type == "cuda"
+    else:
+        # no silent fallback to the CPU: torch's own error
+        with pytest.raises((AssertionError, RuntimeError)):
+            build_scene_from_tri_array(tris)
+        with pytest.raises((AssertionError, RuntimeError)):
+            pmrt.generate_rays(cam, 4, 3)
+        with pytest.raises((AssertionError, RuntimeError)):
+            pmrt.make_rays(np.zeros((1, 3)), np.ones((1, 3)))
+    scene = build_scene_from_tri_array(tris, device="cpu")
+    rays = pmrt.generate_rays(cam, 4, 3, device="cpu")
+    h, _ = scene.cast_rays(rays)
+    assert h.t.device.type == "cpu" and bool(h.hit.any())

@@ -63,7 +63,7 @@ def converted(jct):
         np.asarray(jct.nodes), np.asarray(jct.ablocks),
         np.asarray(jct.islab), np.asarray(jct.iprim), np.asarray(jct.iinv),
         np.asarray(jct.ifwd), tcap=jct.tcap, dummy_enc=jct.dummy_enc,
-        stack_need=jct.stack_need, num_pairs=jct.num_pairs)
+        stack_need=jct.stack_need, num_pairs=jct.num_pairs, device="cpu")
 
 
 def test_tables_equal_converted_jax_tables():
@@ -78,7 +78,7 @@ def test_tables_equal_converted_jax_tables():
     inst_layers = [-1, 0b10, -1, 0b100] * 3      # several groups per mesh
     kw = dict(tcap=32, mesh_layers=mesh_layers, inst_layers=inst_layers)
     conv = converted(jax_build_tlas(ms, inst, **kw))
-    pct = build_cluster_tlas(ms, inst, **kw)
+    pct = build_cluster_tlas(ms, inst, **kw, device="cpu")
     for f in TABLES:
         a, b = getattr(pct, f).numpy(), getattr(conv, f).numpy()
         assert a.shape == b.shape, f
@@ -92,7 +92,7 @@ def test_tables_equal_converted_jax_tables():
 def small():
     ms, inst = small_instanced()
     jct = jax_build_tlas(ms, inst, tcap=32)
-    return jct, build_cluster_tlas(ms, inst, tcap=32)
+    return jct, build_cluster_tlas(ms, inst, tcap=32, device="cpu")
 
 
 def test_instanced_plain_matches_jax_interpret(small):
@@ -122,7 +122,7 @@ def test_instanced_any_hit_matches_jax_interpret(small):
 def tlas():
     """A port SceneTLAS: 3 meshes, 30 instances, some with layer masks."""
     rng = np.random.default_rng(1)
-    t = SceneTLAS()
+    t = SceneTLAS(device="cpu")
     ids = [t.add_mesh(meshes.uv_sphere(1.0, 16, 32)),
            t.add_mesh(meshes.box((1.4, 1.0, 1.2))),
            t.add_mesh(meshes.plane(16.0, subdiv=24),

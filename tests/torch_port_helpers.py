@@ -53,7 +53,7 @@ def jax_rays(o, d, t_min=None, t_max=None):
 def port_rays(o, d, t_min=None, t_max=None):
     from messyerraytracer_tpu_torch.core.types import make_rays
 
-    return make_rays(o, d, t_min, t_max)
+    return make_rays(o, d, t_min, t_max, device="cpu")
 
 
 def jax_cluster_scene(tris, tcap, layers=None):
