@@ -7,10 +7,12 @@ Builds both kernels from the checkout, each with its own nvcc started at
 the same time (B1: kernels/csrc/cluster_cast.cu, B4: kernels/csrc/
 wide_cast.cu; nvcc -> ctypes), then:
 
-  1. holds kernel B1 against its plain PyTorch version on the card, on
-     test-sized flat and instanced scenes (closest hit, any hit, a layer
-     mask, dead and zero-direction rays, a forced small stack): hits by
-     the parity rule, counters and stack_drops exactly;
+  1. holds kernel B1 against its plain PyTorch version on the card, bit
+     for bit with every counter, on test-sized flat and instanced scenes
+     (closest hit, any hit, a layer mask, dead and zero-direction rays, a
+     forced small stack, coherent grid rays, sparse warps, a scene of
+     duplicated triangles), and reads B1's warp stats to show which mode
+     of its cluster phase each case took;
   2. drives the cluster main path at full size — the 1M-triangle instanced
      TLAS of the JAX package's bench.py headline (4 meshes, 215
      instances), one block-swizzled 1920x1080 frame through
@@ -18,7 +20,8 @@ wide_cast.cu; nvcc -> ctypes), then:
      ``build_scene_from_tri_array(world_tris).cast_rays`` — counts the
      kernel launches of that run, checks both casts on a 4096-ray
      subsample against the brute oracle, and holds the kernel against its
-     plain version on the whole frame at both shapes, timing each;
+     plain version on the whole frame at both shapes, timing each and
+     reading its lane occupancy;
   3. holds kernel B4 against its plain version on the card, on the
      test-sized flat scene built with ``backend="pallas"`` at branching 8
      and 2 (closest hit, any hit, a layer mask, the quantized nodes, the
@@ -53,8 +56,12 @@ SLICE = 262_144        # rays of the frame held kernel == plain per layout
 
 # H100 SXM peaks for the bound (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# float32 operations the algorithm does per unit of counted work
+# float32 lane instructions per second outside the tensor cores: 132 SMs x
+# 128 lanes x 1.98 GHz.  The data sheet's 67 TFLOP/s counts an FMA as two
+# operations, but both kernels build with -fmad=false and the counts below
+# are single instructions (sub, mul, min/max, compare), none of them fused.
+F32_INSTR_PER_S = 33.5e12
+# float32 instructions the algorithm does per unit of counted work
 SLAB_OPS = 25          # one child box: 6 sub, 6 mul, 6 min/max, 4 combine,
 #                        3 compare
 MT_OPS = 55            # one classic Moller-Trumbore triangle test
@@ -98,7 +105,7 @@ def nbytes(*tensors) -> int:
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     """The least time the card could take: (ms, what bounds it)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / F32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -127,9 +134,11 @@ def build_kernels(card: str) -> None:
           f"parallel)", flush=True)
 
 
-def random_rays(n: int, seed: int, extent: float, device):
+def random_rays(n: int, seed: int, extent: float, device,
+                live_per_warp: int = 32):
     """Random rays from a seed, with dead rays (t_max < t_min) and
-    zero-direction rays mixed in."""
+    zero-direction rays mixed in; ``live_per_warp`` < 32 also kills all
+    but the first that many rays of every 32 (sparse warps)."""
     from messyerraytracer_tpu_torch.core.types import make_rays
 
     rng = np.random.default_rng(seed)
@@ -140,41 +149,63 @@ def random_rays(n: int, seed: int, extent: float, device):
     d[::101] = 0.0
     t_max = np.full(n, 3.402823466e38, np.float32)
     t_max[::97] = -1.0
+    t_max[np.arange(n) % 32 >= live_per_warp] = -1.0
     return make_rays(o, d, t_max=t_max, device=device)
 
 
-def compare_kernel_plain(rays, cs, chunk=None, **kw):
-    """Run kernel B1 and its plain version on the same rays; check the
-    hits by the parity rule and every counter exactly.  Returns the
-    largest absolute difference of the float outputs and the plain
-    version's ms (host clock, fenced by synchronization)."""
+def grid_rays(eye, target, fov: float, device, w: int = 256, h: int = 128):
+    """A coherent pinhole frame, block-swizzled as the headline frame is
+    (one warp covers a 16x2 pixel patch)."""
     import torch
 
-    from messyerraytracer_tpu_torch.core.brute import parity
+    import messyerraytracer_tpu_torch as mrt
+    from messyerraytracer_tpu_torch.dispatch.morton import (
+        raster_block_permutation)
+
+    cam = mrt.CameraParams.look_at(eye, target, fov_degrees=fov)
+    perm = torch.as_tensor(raster_block_permutation(w, h, 32),
+                           device=device).long()
+    return mrt.generate_rays(cam, w, h, device=device).take(perm)
+
+
+def compare_kernel_plain(rays, cs, chunk=None, **kw):
+    """Run kernel B1 and its plain version on the same rays; check that
+    they agree bit for bit: t, u, v, normals, prim ids, layers, instance
+    ids, per-ray tri_tests and node_visits, pops and stack_drops; and that
+    the kernel's warp-counting build returns the same.  Returns
+    (max_abs_err, the plain version's ms on the host clock fenced by
+    synchronization, warp stats [passes, wanting lanes, cooperative
+    pairs])."""
+    import torch
+
     from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        PLAIN_CHUNK, _hits_from_buffers_v2, cluster_cast_cuda,
-        cluster_cast_plain)
+        PLAIN_CHUNK, cluster_cast_cuda, cluster_cast_plain)
 
     args = (rays.origin, rays.direction, rays.t_min, rays.t_max, cs)
+    stats = torch.zeros(3, dtype=torch.int64, device=rays.origin.device)
     fk, ik, ck = cluster_cast_cuda(*args, **kw)
+    counted = cluster_cast_cuda(*args, warp_stats=stats, **kw)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(counted, (fk, ik, ck))),
+          f"kernel == its warp-counting build {kw}")
     t0 = time.time()
     fp, ip, cp = cluster_cast_plain(*args, chunk=chunk or PLAIN_CHUNK, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
-    hk = _hits_from_buffers_v2(fk, ik, rays)[0]
-    hp = _hits_from_buffers_v2(fp, ip, rays)[0]
-    check(parity(hk, hp), f"kernel vs plain parity {kw}")
-    check(torch.equal(ik[2], ip[2]) and torch.equal(ik[4], ip[4]),
-          f"per-ray tri_tests / node_visits kernel == plain {kw}")
-    check(torch.equal(ck, cp), f"pops/stack_drops kernel == plain {kw}")
-    same = hk.hit == hp.hit
-    check(bool(torch.equal(ik[1][same], ip[1][same])),
-          f"layers kernel == plain {kw}")
-    check(bool(torch.equal(ik[3][same], ip[3][same])),
-          f"instance ids kernel == plain {kw}")
     err = float((fk - fp).abs().max()) if fk.numel() else 0.0
-    return err, plain_ms
+    check(err == 0.0 and torch.equal(fk, fp),
+          f"t/u/v/normals kernel == plain {kw}: max_abs_err {err}")
+    for row, what in enumerate(("prim ids", "layers", "tri_tests",
+                                "instance ids", "node_visits")):
+        check(torch.equal(ik[row], ip[row]), f"{what} kernel == plain {kw}")
+    check(torch.equal(ck, cp), f"pops/stack_drops kernel == plain {kw}")
+    return err, plain_ms, [int(x) for x in stats.tolist()]
+
+
+def occupancy(stats) -> float:
+    """Lane occupancy of the cluster phase: wanting lanes / (32 x
+    passes)."""
+    return stats[1] / (32 * stats[0]) if stats[0] else 0.0
 
 
 def compare_wide_plain(rays, ws, chunk=None, **kw):
@@ -220,7 +251,11 @@ def small_flat_tris():
     return np.concatenate([g, sph]), layers
 
 
-def small_scenes(device):
+def small_scenes(device, copies: int = 1):
+    """The flat test scene and a small instanced one; ``copies`` = 2
+    duplicates every triangle of each mesh at a higher index (the tie
+    scene: both copies land in one cluster, so every hit is a tie that the
+    lower index must win)."""
     from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
         build_cluster_tlas)
     from messyerraytracer_tpu_torch.scene.scene import (
@@ -228,7 +263,9 @@ def small_scenes(device):
     from messyerraytracer_tpu_torch.utils import meshes
 
     tris, layers = small_flat_tris()
-    flat = build_scene_from_tri_array(tris, layers=layers, device=device)
+    flat = build_scene_from_tri_array(np.concatenate([tris] * copies),
+                                      layers=np.concatenate([layers] * copies),
+                                      device=device)
 
     def xform(t, s=1.0):
         m = np.zeros((3, 4), np.float32)
@@ -240,34 +277,72 @@ def small_scenes(device):
             for z in range(-4, 5, 2)]
     inst += [(1, xform((-3, 0, 0), 1.2)), (1, xform((3, 0.5, -1), 0.5))]
     ct = build_cluster_tlas(
-        [meshes.uv_sphere(1.0, 16, 32), meshes.box((1.0, 2.0, 1.0))],
+        [np.concatenate([m] * copies) for m in (
+            meshes.uv_sphere(1.0, 16, 32), meshes.box((1.0, 2.0, 1.0)))],
         inst, tcap=32, device=device)
     return flat, ct
 
 
 def phase_kernel_vs_plain(card: str, device) -> None:
-    """Phase 1: kernel B1 against its plain version on the card."""
+    """Phase 1: kernel B1 against its plain version on the card, bit for
+    bit, and each mode of its cluster phase taken where the case says:
+    coherent grid rays test their clusters lane-serially, sparse warps (28
+    of every 32 rays dead) warp-cooperatively, and the tie scene makes the
+    cooperative reduction keep the lowest index."""
     from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
         cluster_cast_cuda)
 
     flat, ct = small_scenes(device)
+    tie_flat, tie_ct = small_scenes(device, copies=2)
     before = cluster_cast_cuda.launches
     worst = 0.0
-    for name, cs, extent in (("flat", flat.cluster, 8.0),
-                             ("instanced", ct, 5.0)):
+
+    def case(name, what, rays, cs, **kw):
+        nonlocal worst
+        err, _, st = compare_kernel_plain(rays, cs, **kw)
+        worst = max(worst, err)
+        print(f"[{card}] phase 1 {name} {what} {kw or ''}: kernel == "
+              f"plain, max_abs_err {err}; warp stats {st} (passes, wanting "
+              f"lanes, cooperative pairs), lane occupancy {occupancy(st)}",
+              flush=True)
+        return st
+
+    for name, cs, tie, extent, cam in (
+            ("flat", flat.cluster, tie_flat.cluster, 8.0,
+             ((1, 3, 6), (3, 0, 3), 8.0)),
+            ("instanced", ct, tie_ct, 5.0, ((0, 1, 3), (0, 0, 0), 10.0))):
         rays = random_rays(8192, 1, extent, device)
         for kw in ({}, {"any_hit": True}, {"query_mask": 0b10},
                    {"kstack": 1}):
-            err, _ = compare_kernel_plain(rays, cs, **kw)
-            worst = max(worst, err)
-            print(f"[{card}] phase 1 {name} {kw or 'closest'}: kernel == "
-                  f"plain, max_abs_err {err}", flush=True)
+            case(name, "random", rays, cs, **kw)
         _, _, counters = cluster_cast_cuda(
             rays.origin, rays.direction, rays.t_min, rays.t_max, cs,
             kstack=1)
         check(int(counters[1]) > 0, f"{name}: forced small stack drops")
+        st = case(name, "coherent grid", grid_rays(*cam, device), cs)
+        check(st[1] > 0 and st[2] <= st[1] // 10,
+              f"{name} coherent: the serial mode takes >= 90% of pairs")
+        sparse = random_rays(8192, 3, extent, device, live_per_warp=4)
+        st = case(name, "sparse warps", sparse, cs)
+        check(st[1] > 0 and st[2] == st[1],
+              f"{name} sparse warps: every pair cooperative")
+        for what, r in (("tie scene", random_rays(8192, 4, extent, device)),
+                        ("tie scene, sparse warps",
+                         random_rays(8192, 4, extent, device,
+                                     live_per_warp=4))):
+            st = case(name, what, r, tie)
+            check(st[2] > 0, f"{name} {what}: cooperative pairs tested")
+    # on the flat tie scene every hit is on the first copy: prim ids are
+    # input indices, so the lowest index won each tie
+    rays = random_rays(8192, 4, 8.0, device)
+    _, iout, _ = cluster_cast_cuda(rays.origin, rays.direction, rays.t_min,
+                                   rays.t_max, tie_flat.cluster)
+    prim = iout[0][iout[0] >= 0]
+    check(prim.numel() > 0 and bool((prim < len(small_flat_tris()[0])).all()),
+          "tie scene: rays hit, each on the lower copy")
     check(cluster_cast_cuda.launches > before, "kernel launch count rose")
-    print(f"[{card}] phase 1 ok: worst max_abs_err {worst}", flush=True)
+    print(f"[{card}] phase 1 ok: worst max_abs_err {worst}; tie scene: "
+          f"{prim.numel()} hits, all on the lower copy", flush=True)
 
 
 def headline_tlas(device):
@@ -432,17 +507,21 @@ def phase_main_path(card: str, device):
               f"{n / dt / 1e3} Mrays/s", flush=True)
     print(f"[{card}] instanced_vs_flat {dt_f / dt_i}", flush=True)
 
-    # ---- kernel B1 against its plain version at both frame shapes; the
-    # summary keeps the instanced times and bound and the larger error
+    # ---- kernel B1 against its plain version at both frame shapes, with
+    # the lane occupancy of its cluster phase; the summary keeps the
+    # instanced times and bound and the larger error
     k = {"launches": launches, "max_abs_err": 0.0}
     for name, cs in (("instanced", tlas._ctlas), ("flat", flat.cluster)):
         args = (rays.origin, rays.direction, rays.t_min, rays.t_max, cs)
         ms = cuda_ms(lambda: cluster_cast_cuda(*args), 5)
-        err, plain_ms = compare_kernel_plain(rays, cs, chunk=1 << 20)
+        err, plain_ms, st = compare_kernel_plain(rays, cs, chunk=1 << 20)
         bms, by = cluster_bound(cs, rays, *cluster_cast_cuda(*args))
         print(f"[{card}] kernel B1 {name} frame (T={cs.tcap}): kernel "
               f"{ms} ms, plain {plain_ms} ms, bound {bms} ms ({by}), "
-              f"kernel == plain, max_abs_err {err}", flush=True)
+              f"kernel == plain, max_abs_err {err}; lane occupancy "
+              f"{occupancy(st)}, cooperative pairs/ray {st[2] / n}, "
+              f"cluster visits/ray {st[1] / n}, warp stats {st}",
+              flush=True)
         k["max_abs_err"] = max(k["max_abs_err"], err)
         if name == "instanced":
             k.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
@@ -634,7 +713,8 @@ def main() -> int:
           flush=True)
     src = "messyerraytracer_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "cluster_cast", "route": "cuda",
+        {"name": "cluster_cast (postponed cluster visits, warp-cooperative "
+                 "triangle tests)", "route": "cuda",
          "source": src + "cluster_cast.cu",
          "replaces": "messyerraytracer_tpu/kernels/cluster_v2.py:81 "
                      "(+ messyerraytracer_tpu/kernels/cluster.py:1262, "

@@ -313,6 +313,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _load_library(path: str):
+    """Load a built kernel library and declare its C entry."""
+    lib = ctypes.CDLL(path)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mrt_cluster_cast.restype = ctypes.c_int
+    lib.mrt_cluster_cast.argtypes = (
+        [p, p, p, p, i]                 # rays, n
+        + [p, p, p, p, p, p, p, p, i]   # scene tables, tcap
+        + [p, p, p, p]                  # instance tables
+        + [i, i, i, i]                  # qmask, any_hit, kstack, kcap
+        + [f] * 6                       # f32 constants
+        + [p, p, p, p, p])              # fout, iout, counters, warp_stats,
+    #                                     stream
+    return lib
+
+
 def cuda_library():
     """Build (first use) and load the kernel library; cached."""
     global _LIB
@@ -320,19 +336,8 @@ def cuda_library():
 
     with _LIB_LOCK:
         if _LIB is None:
-            path = build_shared_library([_nvcc()] + NVCC_FLAGS, [_CSRC],
-                                        "libmrt_cluster_cast.so")
-            lib = ctypes.CDLL(path)
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.mrt_cluster_cast.restype = ctypes.c_int
-            lib.mrt_cluster_cast.argtypes = (
-                [p, p, p, p, i]                 # rays, n
-                + [p, p, p, p, p, p, p, p, i]   # scene tables, tcap
-                + [p, p, p, p]                  # instance tables
-                + [i, i, i, i]                  # qmask, any_hit, kstack, kcap
-                + [f] * 6                       # f32 constants
-                + [p, p, p, p])                 # fout, iout, counters, stream
-            _LIB = lib
+            _LIB = _load_library(build_shared_library(
+                [_nvcc()] + NVCC_FLAGS, [_CSRC], "libmrt_cluster_cast.so"))
         return _LIB
 
 
@@ -348,12 +353,11 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def cluster_cast_cuda(origin, direction, t_min, t_max, cs: ClusterScene,
-                      query_mask: int = -1, any_hit: bool = False,
-                      kstack: int | None = None):
-    """Launch kernel B1 on CUDA tensors; same outputs as
-    ``cluster_cast_plain``.  Launches on the current stream without
-    synchronizing; raises if the launch is refused."""
+def _kernel_args(origin, direction, t_min, t_max, cs: ClusterScene,
+                query_mask: int = -1, any_hit: bool = False,
+                kstack: int | None = None) -> list:
+    """Check the inputs of kernel B1 and return the leading arguments of
+    its C entry, up to the outputs (rays, tables, flags, constants)."""
     kstack = _kstack_for(cs.stack_need) if kstack is None else int(kstack)
     kcap = next((k for k in KCAPS if k >= kstack), None)
     if kcap is None or kstack < 1:
@@ -377,6 +381,10 @@ def cluster_cast_cuda(origin, direction, t_min, t_max, cs: ClusterScene,
             ("cl_anchor", cs.cl_anchor, f32, (c, 3)),
             ("cl_count", cs.cl_count, i32, (c,))):
         _check(t, name, dt, shape, dev)
+    for name, t in (("node_box", cs.node_box), ("node_child", cs.node_child),
+                    ("tri", cs.tri)):
+        if t.data_ptr() % 16:               # the kernel reads 16-byte words
+            raise ValueError(f"{name} is not 16-byte aligned")
     inst = [0, 0, 0, 0]
     if isinstance(cs, ClusterTLAS):
         ni = cs.n_inst
@@ -388,23 +396,42 @@ def cluster_cast_cuda(origin, direction, t_min, t_max, cs: ClusterScene,
             _check(t, name, dt, shape, dev)
         inst = [cs.inst_cbase.data_ptr(), cs.iprim.data_ptr(),
                 cs.iinv.data_ptr(), cs.ifwd.data_ptr()]
-    fout = torch.empty((6, n), dtype=f32, device=dev)
-    iout = torch.empty((5, n), dtype=i32, device=dev)
+    return [origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), n,
+            cs.node_box.data_ptr(), cs.node_child.data_ptr(),
+            cs.node_axis.data_ptr(), cs.tri.data_ptr(),
+            cs.tri_prim.data_ptr(), cs.tri_layers.data_ptr(),
+            cs.cl_anchor.data_ptr(), cs.cl_count.data_ptr(), tcap, *inst,
+            _as_int32(query_mask), int(bool(any_hit)), kstack, kcap,
+            *(_F32[k] for k in ("det_eps", "bary_lo", "bary_hi", "inv_eps",
+                                 "big", "t_miss"))]
+
+
+def cluster_cast_cuda(origin, direction, t_min, t_max, cs: ClusterScene,
+                      query_mask: int = -1, any_hit: bool = False,
+                      kstack: int | None = None,
+                      warp_stats: torch.Tensor | None = None):
+    """Launch kernel B1 on CUDA tensors; same outputs as
+    ``cluster_cast_plain``.  Launches on the current stream without
+    synchronizing; raises if the launch is refused.
+
+    ``warp_stats``, a (3,) int64 tensor on the rays' device, makes the
+    launch also add, over its warps, the cluster-phase passes, the lanes
+    that wanted a cluster in them, and the (lane, cluster) pairs tested
+    warp-cooperatively; None launches the kernel that does not count."""
+    args = _kernel_args(origin, direction, t_min, t_max, cs, query_mask,
+                       any_hit, kstack)
+    dev, n = origin.device, origin.shape[0]
+    if warp_stats is not None:
+        _check(warp_stats, "warp_stats", torch.int64, (3,), dev)
+    fout = torch.empty((6, n), dtype=torch.float32, device=dev)
+    iout = torch.empty((5, n), dtype=torch.int32, device=dev)
     counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if n == 0:
         return fout, iout, counters
-    lib = cuda_library()
-    err = lib.mrt_cluster_cast(
-        origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-        t_max.data_ptr(), n,
-        cs.node_box.data_ptr(), cs.node_child.data_ptr(),
-        cs.node_axis.data_ptr(), cs.tri.data_ptr(), cs.tri_prim.data_ptr(),
-        cs.tri_layers.data_ptr(), cs.cl_anchor.data_ptr(),
-        cs.cl_count.data_ptr(), tcap, *inst,
-        _as_int32(query_mask), int(bool(any_hit)), kstack, kcap,
-        *(_F32[k] for k in ("det_eps", "bary_lo", "bary_hi", "inv_eps",
-                             "big", "t_miss")),
-        fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
+    err = cuda_library().mrt_cluster_cast(
+        *args, fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
+        None if warp_stats is None else warp_stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cluster_cast kernel launch failed: CUDA error "

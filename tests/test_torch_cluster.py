@@ -11,6 +11,7 @@ from messyerraytracer_tpu.kernels.cluster_v2 import (  # noqa: E402
     cast_rays_cluster_v2 as jax_cast,
 )
 
+from messyerraytracer_tpu_torch.core.brute import cast_rays_brute  # noqa
 from messyerraytracer_tpu_torch.kernels import cluster_v2  # noqa: E402
 from messyerraytracer_tpu_torch.kernels.cluster import (  # noqa: E402
     build_cluster_scene,
@@ -27,6 +28,8 @@ from messyerraytracer_tpu_torch.scene.scene import (  # noqa: E402
 )
 from messyerraytracer_tpu_torch.utils import meshes  # noqa: E402
 from torch_port_helpers import (  # noqa: E402
+    ANCHOR_ATOL,
+    assert_parity,
     assert_same_hits,
     jax_cluster_scene,
     jax_rays,
@@ -192,3 +195,27 @@ def test_tpu_knobs_accepted_and_ignored(small):
     assert_same_hits(h, ref, rtol=0.0, atol=0.0)
     with pytest.raises(ValueError, match="probe"):
         cast_rays_cluster_v2(rays, pcs, probe="nodma")
+
+
+def test_tie_goes_to_the_lowest_duplicate():
+    # every triangle duplicated at a higher index: the builder puts both
+    # copies in one cluster, lower index first, so every hit is an exact
+    # tie inside a cluster, which the lowest index must win (the rule the
+    # kernel's warp-cooperative reduction keeps)
+    base = small_tris()
+    tris = np.concatenate([base, base])
+    _, jcs = jax_cluster_scene(tris, 32)
+    ps, pcs = port_cluster(tris, 32)
+    o, d = rand_rays_np(128, seed=12)
+    rays = port_rays(o, d)
+    fout, iout, counters = cluster_cast_plain(
+        rays.origin, rays.direction, rays.t_min, rays.t_max, pcs)
+    hp = cluster_v2._hits_from_buffers_v2(fout, iout, rays)[0]
+    hj, _, _ = jax_cast(jax_rays(o, d), jcs)
+    hb, _ = cast_rays_brute(rays, ps.tris)
+    assert_same_hits(hp, hj)
+    assert_parity(hp, hb, atol=ANCHOR_ATOL)
+    hit = np_of(hp.hit)
+    assert hit.sum() >= 20 and int(counters[1]) == 0
+    assert (np_of(hp.prim_id)[hit] < len(base)).all()
+    assert (np_of(hb.prim_id)[hit] < len(base)).all()
