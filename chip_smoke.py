@@ -22,17 +22,22 @@ wide_cast.cu; nvcc -> ctypes), then:
      subsample against the brute oracle, and holds the kernel against its
      plain version on the whole frame at both shapes, timing each and
      reading its lane occupancy;
-  3. holds kernel B4 against its plain version on the card, on the
-     test-sized flat scene built with ``backend="pallas"`` at branching 8
-     and 2 (closest hit, any hit, a layer mask, the quantized nodes, the
-     streamed casts of B5's contract, a forced small stack);
+  3. holds kernel B4 against its plain version on the card, bit for bit
+     with every counter, on the test-sized flat scene built with
+     ``backend="pallas"`` at branching 8 and 2 (closest hit, any hit, a
+     layer mask, the quantized nodes, the streamed casts of B5's contract,
+     a forced small stack, coherent grid rays, sparse warps, a scene of
+     duplicated triangles), and reads B4's warp stats (the lane occupancy
+     of its node and leaf phases);
   4. drives the ``pallas`` path at full size — the same 1M world
      triangles built with ``backend="pallas"`` (8-wide), the same frame
      through ``RayScene.cast_rays`` and ``any_hit_rays`` — counts B4's
      launches (and that B1 did not launch), checks stack_drops and parity
-     against brute, holds B4 against its plain version on the whole frame,
-     times the cast and the kernel; the binary and quantized layouts at
-     the same scene by parity and on a 262,144-ray slice; and the v1
+     against brute, holds B4 against its plain version bit for bit on the
+     whole frame as closest hit and as any hit, times the cast and the
+     kernel (both modes, with both lane occupancies); the binary and
+     quantized layouts at the same scene by parity, timed on the whole
+     frame and held bit for bit on a 262,144-ray slice; and the v1
      cluster entry points (B3) on B1.
 
 Every number is printed beside the card's name and power limit.  The last
@@ -209,33 +214,47 @@ def occupancy(stats) -> float:
 
 
 def compare_wide_plain(rays, ws, chunk=None, **kw):
-    """Run kernel B4 and its plain version on the same rays; check the
-    hits by the parity rule, occlusion, per-ray tri_tests, pops and
-    stack_drops exactly.  Returns (max_abs_err, plain ms, kernel
-    outputs)."""
+    """Run kernel B4 and its plain version on the same rays; check that
+    they agree bit for bit: t, u, v, slots, per-ray tri_tests, pops and
+    stack_drops; and that the kernel's warp-counting build returns the
+    same.  Returns (max_abs_err, plain ms, kernel outputs, warp stats
+    [node-phase passes, popping lanes, leaf-phase passes, wanting lanes,
+    cooperatively tested lanes])."""
     import torch
 
-    from messyerraytracer_tpu_torch.core.brute import parity
     from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
-        PLAIN_CHUNK, _hits_from_slots, wide_cast_cuda, wide_cast_plain)
+        PLAIN_CHUNK, wide_cast_cuda, wide_cast_plain)
 
     args = (rays.origin, rays.direction, rays.t_min, rays.t_max, ws)
+    stats = torch.zeros(5, dtype=torch.int64, device=rays.origin.device)
     k = wide_cast_cuda(*args, **kw)
+    counted = wide_cast_cuda(*args, warp_stats=stats, **kw)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(counted, k)),
+          f"B4 == its warp-counting build {kw}")
     t0 = time.time()
     p = wide_cast_plain(*args, chunk=chunk or PLAIN_CHUNK, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
     (fk, ik, ck), (fp, ip, cp) = k, p
-    hk = _hits_from_slots(fk, ik, rays, ws)[0]
-    hp = _hits_from_slots(fp, ip, rays, ws)[0]
-    check(torch.equal(hk.hit, hp.hit), f"B4 occluded kernel == plain {kw}")
-    if not kw.get("any_hit"):
-        check(parity(hk, hp), f"B4 kernel vs plain parity {kw}")
-    check(torch.equal(ik[1], ip[1]), f"B4 tri_tests kernel == plain {kw}")
-    check(torch.equal(ck, cp), f"B4 pops/stack_drops kernel == plain {kw}")
     err = float((fk - fp).abs().max()) if fk.numel() else 0.0
-    return err, plain_ms, k
+    check(err == 0.0 and torch.equal(fk, fp),
+          f"B4 t/u/v kernel == plain {kw}: max_abs_err {err}")
+    check(torch.equal(ik, ip), f"B4 slots/tri_tests kernel == plain {kw}")
+    check(torch.equal(ck, cp), f"B4 pops/stack_drops kernel == plain {kw}")
+    return err, plain_ms, k, [int(x) for x in stats.tolist()]
+
+
+def wide_occupancy(stats) -> tuple[float, float]:
+    """B4's lane occupancy of its node phase (popping lanes / (32 x
+    passes)) and of its leaf phase (wanting lanes / (32 x passes))."""
+    return (stats[1] / (32 * stats[0]) if stats[0] else 0.0,
+            stats[3] / (32 * stats[2]) if stats[2] else 0.0)
+
+
+def coop_share(stats) -> float:
+    """The share of B4's leaf visits tested cooperatively."""
+    return stats[4] / stats[3] if stats[3] else 0.0
 
 
 def small_flat_tris():
@@ -532,7 +551,11 @@ def phase_main_path(card: str, device):
 
 
 def phase_wide_vs_plain(card: str, device) -> None:
-    """Phase 3: kernel B4 against its plain version on the card."""
+    """Phase 3: kernel B4 against its plain version on the card, bit for
+    bit, with the lane occupancy of its node and leaf phases: random rays
+    (closest, any hit, a layer mask, a forced small stack, quantized
+    nodes), coherent grid rays, sparse warps (28 of every 32 rays dead)
+    and a scene of duplicated triangles (ties the lower slot must win)."""
     import torch
 
     from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
@@ -542,25 +565,42 @@ def phase_wide_vs_plain(card: str, device) -> None:
 
     tris, layers = small_flat_tris()
     rays = random_rays(8192, 2, 8.0, device)
+    extra = (("coherent grid", grid_rays((1, 3, 6), (3, 0, 3), 8.0, device),
+              1),
+             ("sparse warps", random_rays(8192, 3, 8.0, device,
+                                          live_per_warp=4), 1),
+             ("tie scene", random_rays(8192, 4, 8.0, device), 2))
     before = wide_cast_cuda.launches
     worst = 0.0
     for branching in (8, 2):
-        ws = build_scene_from_tri_array(tris, layers=layers,
-                                        backend="pallas",
-                                        branching=branching,
-                                        device=device).wide
-        cases = [{}, {"any_hit": True}, {"query_mask": 0b10}, {"kstack": 1}]
+        def scene(copies):
+            return build_scene_from_tri_array(
+                np.concatenate([tris] * copies),
+                layers=np.concatenate([layers] * copies), backend="pallas",
+                branching=branching, device=device).wide
+
+        ws = scene(1)
+        cases = [("random", rays, ws, kw) for kw in (
+            {}, {"any_hit": True}, {"query_mask": 0b10}, {"kstack": 1})]
         if branching == 8:
-            cases.append({"quantized": True})
-        for kw in cases:
-            err, _, (fk, ik, ck) = compare_wide_plain(rays, ws, **kw)
+            cases.append(("random", rays, ws, {"quantized": True}))
+        cases += [(what, r, ws if copies == 1 else scene(copies), {})
+                  for what, r, copies in extra]
+        for what, r, w, kw in cases:
+            err, _, (fk, ik, ck), st = compare_wide_plain(r, w, **kw)
             worst = max(worst, err)
             if kw.get("kstack") == 1:
                 check(int(ck[1]) > 0, "B4 forced small stack drops")
-            print(f"[{card}] phase 3 branching {branching} "
+            if what != "random":
+                check(int((ik[0] >= 0).sum()) > 0, f"B4 {what}: rays hit")
+            print(f"[{card}] phase 3 branching {branching} {what} "
                   f"{kw or 'closest'}: kernel == plain, max_abs_err {err}, "
-                  f"stack_drops {int(ck[1])}", flush=True)
-            if not kw:
+                  f"stack_drops {int(ck[1])}; warp stats {st} (node "
+                  f"passes, popping lanes, leaf passes, wanting lanes, "
+                  f"cooperative lanes), lane occupancy node/leaf "
+                  f"{wide_occupancy(st)}, cooperative share "
+                  f"{coop_share(st)}", flush=True)
+            if what == "random" and not kw:
                 closest = (fk, ik)
         # B5's contract: the streamed cast launches the same kernel
         n0 = wide_cast_cuda.launches
@@ -631,20 +671,28 @@ def phase_pallas_path(card: str, device, ctx: dict) -> dict:
     check(torch.equal(scene.any_hit_rays(sub), hb.hit),
           "pallas any-hit vs brute")
 
-    # ---- timing: the cast entry point, then B4 alone and its plain version
+    # ---- timing: the cast entry point, then B4 alone and its plain
+    # version on the whole 8-wide frame, closest hit and any hit, with the
+    # lane occupancy of its node and leaf phases; the summary keeps the
+    # closest hit's times and bound and the larger error
     dt = cuda_ms(lambda: scene.cast_rays(rays), 5)
     print(f"[{card}] pallas cast 1080p: {dt} ms/frame, {n / dt / 1e3} "
           f"Mrays/s", flush=True)
     args = (rays.origin, rays.direction, rays.t_min, rays.t_max, ws)
-    ms = cuda_ms(lambda: wide_cast_cuda(*args), 5)
-    err, plain_ms, out = compare_wide_plain(rays, ws, chunk=1 << 20)
-    bms, by = wide_bound(ws, rays, *out)
-    print(f"[{card}] kernel B4 8-wide frame: kernel {ms} ms, plain "
-          f"{plain_ms} ms, bound {bms} ms ({by}), kernel == plain, "
-          f"max_abs_err {err}", flush=True)
-    k = {"launches": launches, "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-         "library_ms": None}
+    k = {"launches": launches, "max_abs_err": 0.0, "library_ms": None}
+    for name, kw in (("closest hit", {}), ("any hit", {"any_hit": True})):
+        ms = cuda_ms(lambda: wide_cast_cuda(*args, **kw), 5)
+        err, plain_ms, out, st = compare_wide_plain(rays, ws, chunk=1 << 20,
+                                                    **kw)
+        bms, by = wide_bound(ws, rays, *out)
+        print(f"[{card}] kernel B4 8-wide frame, {name}: kernel {ms} ms, "
+              f"plain {plain_ms} ms, bound {bms} ms ({by}), kernel == "
+              f"plain, max_abs_err {err}; lane occupancy node/leaf "
+              f"{wide_occupancy(st)}, cooperative share {coop_share(st)}, "
+              f"warp stats {st}", flush=True)
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        if not kw:
+            k.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
     # ---- the binary and quantized layouts at the same scene
     ws2 = build_wide_scene(scene.bvh, scene.tris, device=device)
@@ -659,17 +707,21 @@ def phase_pallas_path(card: str, device, ctx: dict) -> dict:
         check(ok, f"pallas {name} parity vs brute")
         a2 = (rays.origin, rays.direction, rays.t_min, rays.t_max, w)
         ms2 = cuda_ms(lambda: wide_cast_cuda(*a2, **kw), 5)
-        fo, io, co = wide_cast_cuda(*a2, **kw)
+        st = torch.zeros(5, dtype=torch.int64, device=device)
+        fo, io, co = wide_cast_cuda(*a2, warp_stats=st, **kw)
         check(int(co[1]) == 0, f"{name} frame stack_drops == 0")
         bms2, by2 = wide_bound(w, rays, fo, io, co, **kw)
-        err2, plain2, _ = compare_wide_plain(part, w, **kw)
+        st = [int(x) for x in st.tolist()]
+        err2, plain2, _, _ = compare_wide_plain(part, w, **kw)
         k["max_abs_err"] = max(k["max_abs_err"], err2)
         print(f"[{card}] kernel B4 {name} frame: kernel {ms2} ms, bound "
               f"{bms2} ms ({by2}), tri_tests/ray "
               f"{int(io[1].sum(dtype=torch.int64)) / n}, pops/ray "
-              f"{int(co[0]) / n}, stack_need {w.stack_need}; kernel == "
-              f"plain on {SLICE} rays (plain {plain2} ms), max_abs_err "
-              f"{err2}", flush=True)
+              f"{int(co[0]) / n}, stack_need {w.stack_need}; lane "
+              f"occupancy node/leaf {wide_occupancy(st)}, cooperative "
+              f"share {coop_share(st)}; kernel == plain "
+              f"on {SLICE} rays (plain {plain2} ms), max_abs_err {err2}",
+              flush=True)
 
     # ---- B3: the v1 cluster entry points run on B1
     flat, tlas = ctx["flat"], ctx["tlas"]
@@ -721,7 +773,8 @@ def main() -> int:
                      "fused; messyerraytracer_tpu/kernels/cluster.py:564's "
                      "entry points)",
          **k1},
-        {"name": "wide_cast", "route": "cuda",
+        {"name": "wide_cast (postponed leaf visits, 16-byte loads, "
+                 "register cap)", "route": "cuda",
          "source": src + "wide_cast.cu",
          "replaces": "messyerraytracer_tpu/kernels/traverse_pallas.py:555 "
                      "(+ messyerraytracer_tpu/kernels/traverse_pallas.py:87"

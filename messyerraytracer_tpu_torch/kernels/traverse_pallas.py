@@ -239,6 +239,7 @@ def wide_cast_plain(origin, direction, t_min, t_max, ws: WideScene,
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                      "wide_cast.cu")
+_RAY_FIELDS = ("origin", "direction", "t_min", "t_max")   # scalar loads
 _LIB_LOCK = threading.Lock()
 _LIB = None
 
@@ -263,17 +264,25 @@ def cuda_library():
                 + [i, i, i, i, i, i]            # K, q, qmask, any, kstack,
                 #                                 kcap
                 + [f] * 4                       # f32 constants
-                + [p, p, p, p])                 # fout, iout, counters, stream
+                + [p, p, p, p, p])              # fout, iout, counters,
+            #                                     warp_stats, stream
             _LIB = lib
         return _LIB
 
 
 def wide_cast_cuda(origin, direction, t_min, t_max, ws: WideScene,
                    query_mask: int = -1, any_hit: bool = False,
-                   quantized: bool = False, kstack: int | None = None):
+                   quantized: bool = False, kstack: int | None = None,
+                   warp_stats: torch.Tensor | None = None):
     """Launch kernel B4 on CUDA tensors; same outputs as
     ``wide_cast_plain``.  Launches on the current stream without
-    synchronizing; raises if the launch is refused."""
+    synchronizing; raises if the launch is refused.
+
+    ``warp_stats``: None, or a (5,) int64 tensor on the rays' device that
+    the launch adds [node-phase passes, popping lanes, leaf-phase passes,
+    wanting lanes, lanes whose leaf was tested cooperatively] to (a build
+    of the kernel that counts; the lane occupancy of a phase is lanes /
+    (32 x passes))."""
     kstack = _kstack_for(ws.stack_need) if kstack is None else int(kstack)
     kcap = next((k for k in KCAPS if k >= kstack), None)
     if kcap is None or kstack < 1:
@@ -305,6 +314,11 @@ def wide_cast_cuda(origin, direction, t_min, t_max, ws: WideScene,
         qptr = [t.data_ptr() for t in q]
     for name, t, dt, shape in tables:
         _check(t, name, dt, shape, dev)
+        if name not in _RAY_FIELDS and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (the kernel "
+                             f"reads its rows in 16-byte loads)")
+    if warp_stats is not None:
+        _check(warp_stats, "warp_stats", torch.int64, (5,), dev)
     fout = torch.empty((3, n), dtype=f32, device=dev)
     iout = torch.empty((2, n), dtype=i32, device=dev)
     counters = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -322,6 +336,7 @@ def wide_cast_cuda(origin, direction, t_min, t_max, ws: WideScene,
         int(bool(any_hit)), kstack, kcap,
         *(_F32[k] for k in ("det_eps", "inv_eps", "big", "t_miss")),
         fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
+        None if warp_stats is None else warp_stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wide_cast kernel launch failed: CUDA error "

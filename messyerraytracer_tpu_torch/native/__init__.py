@@ -27,6 +27,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SAH_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "sah_builder.cpp")
 
+# g++ flags of the SAH builder library (the JAX package builds its copy of
+# the source with the same flags)
+SAH_CFLAGS = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
+
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
@@ -87,9 +91,8 @@ def get_native_lib():
             return _LIB
         _TRIED = True
         try:
-            path = build_shared_library(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC"],
-                [SAH_SRC], "libmrt_native.so")
+            path = build_shared_library(SAH_CFLAGS, [SAH_SRC],
+                                        "libmrt_native.so")
         except (OSError, RuntimeError):
             return None      # no compiler here: numpy builder fallback
         lib = ctypes.CDLL(path)

@@ -1,0 +1,77 @@
+"""PyTorch port: both packages' native SAH builders load in every test
+worker (a worker whose JAX library failed to load gets it from the atomic
+build that the port's test helpers make), and both build bit-identical
+BVH tables."""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from messyerraytracer_tpu import native as jnative  # noqa: E402
+from messyerraytracer_tpu.scene import scene as jscene  # noqa: E402
+
+from messyerraytracer_tpu_torch import native as pnative  # noqa: E402
+from messyerraytracer_tpu_torch.scene import scene as pscene  # noqa: E402
+from torch_port_helpers import (  # noqa: E402
+    JAX_NATIVE_SO,
+    load_native_libraries,
+    np_of,
+    small_tris,
+    terrain_tris,
+)
+
+
+def test_both_native_libraries_load():
+    jlib, plib = load_native_libraries()
+    assert jlib is not None and plib is not None
+    assert jlib is jnative.get_native_lib()
+    assert plib is pnative.get_native_lib()
+
+
+def test_a_failed_load_is_rebuilt_atomically():
+    """A worker that loaded a half-written library is left with no library
+    and the numpy builder for good; the helpers rebuild the JAX package's
+    source atomically in the port's build directory and load that."""
+    saved = (jnative._SO, jnative._LIB, jnative._TRIED)
+    try:
+        jnative._LIB, jnative._TRIED = None, True      # the failed state
+        assert jnative.get_native_lib() is None
+        jlib, _ = load_native_libraries()
+        assert jlib is not None and jlib is jnative.get_native_lib()
+        assert jnative._SO == os.path.join(pnative.BUILD_DIR, JAX_NATIVE_SO)
+        assert (os.path.getmtime(jnative._SO)
+                >= os.path.getmtime(jnative._SRC))
+    finally:
+        jnative._SO, jnative._LIB, jnative._TRIED = saved
+
+
+@pytest.mark.parametrize("fn", ["native_build_bvh", "native_build_bvh_aabbs"])
+def test_native_builders_build_identical_tables(fn):
+    tris = np.concatenate([terrain_tris(12, extent=8.0), small_tris()])
+    v = (tris[:, 0], tris[:, 1], tris[:, 2])
+    if fn == "native_build_bvh":
+        args = v
+    else:
+        lo = np.minimum(np.minimum(v[0], v[1]), v[2])
+        hi = np.maximum(np.maximum(v[0], v[1]), v[2])
+        args = (lo, hi, (lo + hi) * 0.5, 4)
+    pj, pp = getattr(jnative, fn)(*args), getattr(pnative, fn)(*args)
+    assert pj is not None and pp is not None
+    assert len(pj) == len(pp) == 8 and pj[-1] == pp[-1] > 1
+    for a, b in zip(pj[:-1], pp[:-1]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "jnp"])
+def test_scene_builds_share_one_tree(backend):
+    tris = small_tris()
+    js = jscene.build_scene_from_tri_array(tris, backend=backend)
+    ps = pscene.build_scene_from_tri_array(tris, backend=backend,
+                                           device="cpu")
+    for f in ("aabb_min", "aabb_max", "left_first", "count", "tri_order",
+              "split_axis"):
+        np.testing.assert_array_equal(np_of(getattr(ps.bvh, f)),
+                                      np_of(getattr(js.bvh, f)), err_msg=f)

@@ -303,13 +303,27 @@ def test_cuda_kernel_matches_plain(mid_tris):
     tris, lay = mid_tris
     o, d, t_max = mixed_rays(8192, seed=50, extent=8.0)
     rays = port_rays(o, d, t_max=t_max).to(dev)
+    # sparse warps: 28 of every 32 rays dead
+    sparse_t = t_max.copy()
+    sparse_t[np.arange(len(sparse_t)) % 32 >= 4] = -1.0
+    sparse = port_rays(o, d, t_max=sparse_t).to(dev)
+    cam = pmrt.CameraParams.look_at((1, 3, 6), (3, 0, 3), fov_degrees=30.0)
+    grid = pmrt.generate_rays(cam, 128, 64, device=dev)     # coherent
     for branching in (8, 2):
-        ws = pscene.build_scene_from_tri_array(
-            tris, layers=lay, backend="pallas", branching=branching,
-            device=dev).wide
-        args = (rays.origin, rays.direction, rays.t_min, rays.t_max, ws)
-        for kw in ({}, {"any_hit": True}, {"query_mask": 0b10},
-                   {"kstack": 1}, {"quantized": branching == 8}):
+        def wide(copies):
+            return pscene.build_scene_from_tri_array(
+                np.concatenate([tris] * copies),
+                layers=np.concatenate([lay] * copies), backend="pallas",
+                branching=branching, device=dev).wide
+
+        ws = wide(1)
+        cases = [(rays, ws, kw) for kw in (
+            {}, {"any_hit": True}, {"query_mask": 0b10}, {"kstack": 1},
+            {"quantized": branching == 8})]
+        cases += [(grid, ws, {}), (sparse, ws, {}),
+                  (rays, wide(2), {})]             # ties: every tri twice
+        for r, w, kw in cases:
+            args = (r.origin, r.direction, r.t_min, r.t_max, w)
             before = wide_cast_cuda.launches
             k = wide_cast_cuda(*args, **kw)
             p = wide_cast_plain(*args, **kw)
@@ -317,3 +331,13 @@ def test_cuda_kernel_matches_plain(mid_tris):
             assert wide_cast_cuda.launches == before + 1
             for a, b in zip(k, p):
                 assert torch.equal(a, b), kw
+        # the warp-counting build: the same outputs, and lane counts that
+        # fit in 32 lanes per pass
+        stats = torch.zeros(5, dtype=torch.int64, device=dev)
+        args = (grid.origin, grid.direction, grid.t_min, grid.t_max, ws)
+        counted = wide_cast_cuda(*args, warp_stats=stats)
+        for a, b in zip(counted, wide_cast_cuda(*args)):
+            assert torch.equal(a, b)
+        passes, popping, leaf_passes, wanting, coop = stats.tolist()
+        assert 0 < popping <= 32 * passes and 0 < wanting <= 32 * leaf_passes
+        assert 0 <= coop <= wanting

@@ -17,8 +17,11 @@ from messyerraytracer_tpu.kernels.traverse_pallas import (  # noqa: E402
 )
 from messyerraytracer_tpu.scene import scene as jscene  # noqa: E402
 
+import messyerraytracer_tpu_torch as pmrt  # noqa: E402
+from messyerraytracer_tpu_torch.core.brute import cast_rays_brute  # noqa
 from messyerraytracer_tpu_torch.kernels.traverse_pallas import (  # noqa
     cast_rays_wide,
+    wide_cast_plain,
 )
 from messyerraytracer_tpu_torch.kernels.wide import (  # noqa: E402
     refresh_wide_scene,
@@ -27,6 +30,7 @@ from messyerraytracer_tpu_torch.kernels.wide import (  # noqa: E402
 from messyerraytracer_tpu_torch.scene import scene as pscene  # noqa: E402
 from messyerraytracer_tpu_torch.utils import meshes  # noqa: E402
 from torch_port_helpers import (  # noqa: E402
+    assert_parity,
     assert_same_hits,
     jax_rays,
     np_of,
@@ -183,3 +187,40 @@ def test_plain_cast_matches_jax_kernel(small_wide, case):
     assert int(occ_p.sum()) > 100
     for f in ("t", "u", "v", "normal", "position"):
         assert bool(torch.isfinite(getattr(hp, f)).all())
+
+
+@pytest.mark.parametrize("branching", [8, 2])
+def test_tie_goes_to_the_lower_slot(branching):
+    """Every triangle twice, the copy at a higher index: both copies share
+    a leaf, and the strictly-closer update of the leaf test keeps the
+    lower slot (the JAX kernel's rule, traverse_pallas.py:776-787)."""
+    sph = meshes.uv_sphere(1.0, 6, 12)
+    tris = np.concatenate([sph, sph])
+    js = jscene.build_scene_from_tri_array(tris, backend="pallas",
+                                           branching=branching)
+    ps = pscene.build_scene_from_tri_array(tris, backend="pallas",
+                                           branching=branching, device="cpu")
+    cam = pmrt.CameraParams.look_at((0.3, 0.5, 4.0), (0, 0, 0),
+                                    fov_degrees=40.0)
+    r = pmrt.generate_rays(cam, 32, 32, device="cpu")
+    o, d = np_of(r.origin), np_of(r.direction)
+    rp = port_rays(o, d)
+    w = ps.wide
+    _, iout, _ = wide_cast_plain(rp.origin, rp.direction, rp.t_min,
+                                 rp.t_max, w)
+    slot = iout[0].numpy()
+    hit = slot >= 0
+    assert hit.sum() > 300
+    tri = np_of(w.slot_prim_id).reshape(-1, 4) % len(sph)   # copy -> tri
+    leaf, k = slot[hit] // 4, slot[hit] % 4
+    same = tri[leaf] == tri[leaf, k][:, None]                # its copies
+    assert (same.sum(axis=1) == 2).all()                     # share a leaf
+    np.testing.assert_array_equal(k, same.argmax(axis=1))    # lower slot
+    # the JAX kernel in interpret mode keeps the same slots, so the same
+    # prim ids; the brute oracle agrees by the parity rule
+    hp, _, _ = cast_rays_wide(rp, w)
+    hj, _, _ = jax_cast_wide(jax_rays(o, d), js.wide, interpret=True)
+    assert_same_hits(hp, hj)
+    np.testing.assert_array_equal(np_of(hp.prim_id), np_of(hj.prim_id))
+    hb, _ = cast_rays_brute(rp, ps.tris)
+    assert_parity(hp, hb)

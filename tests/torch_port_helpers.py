@@ -13,6 +13,42 @@ torch.set_num_threads(1)
 
 TIE_RTOL = 4e-6   # bench.py::parity: shared-edge ties agree to ~8 ulps
 
+JAX_NATIVE_SO = "libmrt_native_jax.so"   # in the port's build directory
+
+
+def load_native_libraries():
+    """Load both packages' native SAH builders, or raise.
+
+    The JAX package compiles its library straight into its final path and
+    trusts any file there, and its tests load it while test workers are
+    collected (tests/test_native_tables.py, in a ``skipif``), so workers
+    that build at once can load a half-written file; such a worker keeps
+    the numpy builder, whose trees differ, for the rest of its run.  So
+    before any port test runs, a worker whose JAX library is not loaded
+    compiles the JAX package's source atomically (a temporary file, then a
+    rename) into the port's build directory under its own name, points the
+    JAX package at that file and lets it load again.  This sets module
+    attributes and edits no file.  A test never compares against a tree
+    built by the numpy fallback: if either library does not load, this
+    raises."""
+    from messyerraytracer_tpu import native as jnative
+    from messyerraytracer_tpu_torch import native as pnative
+
+    with jnative._LOCK:
+        if jnative._LIB is None:
+            jnative._SO = pnative.build_shared_library(
+                pnative.SAH_CFLAGS, [jnative._SRC], JAX_NATIVE_SO)
+            jnative._TRIED = False
+    for name, mod in (("JAX package's", jnative), ("port's", pnative)):
+        if mod.get_native_lib() is None:
+            raise RuntimeError(
+                f"the {name} native SAH builder did not load: the port's "
+                f"tests compare trees only with both native builders")
+    return jnative.get_native_lib(), pnative.get_native_lib()
+
+
+load_native_libraries()
+
 
 def small_tris():
     """The JAX suite's interpret-mode scene (test_cluster_v2.py:25-35):
