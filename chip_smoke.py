@@ -38,7 +38,27 @@ wide_cast.cu; nvcc -> ctypes), then:
      kernel (both modes, with both lane occupancies); the binary and
      quantized layouts at the same scene by parity, timed on the whole
      frame and held bit for bit on a 262,144-ray slice; and the v1
-     cluster entry points (B3) on B1.
+     cluster entry points (B3) on B1;
+  5. serving and rendering at full size: (a) a ``RayTracerService`` over
+     the headline meshes and instances answers 524,288 random rays
+     through the Morton-sorting dispatcher on B1, closest and any hit,
+     sorted and unsorted (bit-equal), with parity against brute, then
+     ``RayDispatcher`` on phase 4's pallas scene (B4, sorted ==
+     unsorted); (b) ``RayRenderer`` over ``SceneTLAS.instanced_scene()``
+     at 1920x1080 — COLOR with two lights and shadows over 2 accumulated
+     frames, then NORMAL, DEPTH, PRIM_ID and HIT_MASK (HIT_MASK == the
+     instanced cast's hit); (c) the wavefront path tracer, 3 bounces at
+     1920x1080 on the instanced and the flat scene (carried sort within
+     1e-4 of the uncarried frame); (d) camera rays, and the test-sized
+     scenes rendered and path-traced, on the card and on the CPU (the
+     plain versions): rays, integer AOVs and PCG32 streams equal, floats
+     within the tests' tolerances.  Each path's B1 / B4 launches are
+     counted from its own run; each kernel is held bit for bit against
+     its plain version on the inputs these paths give it (the sorted
+     service batch, closest and any hit; the renderer's shadow wave; the
+     path tracers' shadow and extend waves with their dead rays); one
+     call of each path is profiled (torch.profiler) and its device time
+     split by the port's ``record_function`` ranges.
 
 Every number is printed beside the card's name and power limit.  The last
 two lines are the kernel summary and the result, both JSON.  Exits
@@ -642,6 +662,7 @@ def phase_pallas_path(card: str, device, ctx: dict) -> dict:
                                        device=device)
     ws = scene.wide
     build_s = time.time() - t0
+    ctx["pallas"] = scene
     print(f"[{card}] pallas scene (8-wide): {ws.node_child.shape[0]} nodes, "
           f"{ws.num_leaves} leaves, stack_need {ws.stack_need}, stream "
           f"flags {ws.stream_leaves}/{ws.stream_nodes}, build {build_s} s",
@@ -743,6 +764,499 @@ def phase_pallas_path(card: str, device, ctx: dict) -> dict:
     return k
 
 
+# ---------------------------------------------------------------------------
+# phase 5: serving and rendering
+# ---------------------------------------------------------------------------
+
+INCOHERENT = 512 * 1024     # random rays of the service batch (bench.py)
+SMALL_FRAME = (64, 48)      # card against CPU
+HIT_FIELDS = ("t", "position", "normal", "u", "v", "prim_id", "hit_layers")
+# the port's torch.profiler ranges (device_split reads them)
+PORT_RANGES = ("cast", "morton.key", "morton.sort", "morton.gather",
+               "morton.unshuffle", "wavefront.take", "render.raygen",
+               "render.trace", "render.shadows", "render.shade")
+
+
+# Random rays start anywhere in the scene, many next to a surface.  B1's t
+# goes through ray and triangle coordinates relative to the cluster anchor,
+# so its absolute error is a few ulps of the scene's coordinates, not of t:
+# a hit at t << 1 can miss rtol 1e-5 against the brute oracle's classic
+# Moller-Trumbore (measured on the headline scene: 3 of 4096 rays, by up to
+# 5.6e-6 at t = 0.023, coordinates up to 40).  Such batches add ANCHOR_ULPS
+# ulps of the scene's largest coordinate to t's tolerance.
+ANCHOR_ULPS = 8
+
+
+def anchor_atol(scene) -> float:
+    host = scene.bvh.host
+    big = max(np.abs(host["aabb_min"][0]).max(),
+              np.abs(host["aabb_max"][0]).max())
+    return float(ANCHOR_ULPS * np.finfo(np.float32).eps * big)
+
+
+def device_split(fn, ranges, launch_ranges=None) -> dict:
+    """One more call of ``fn`` (after a warm-up) under torch.profiler.
+    Returns ms: the call's wall time (CUDA events, under the profiler), the
+    device's busy time (the union of its kernels and copies) and idle share,
+    the kernels B1 and B4 by name (each launch, in launch order), for each
+    ``torch.profiler`` range named in ``ranges`` the device time of the
+    kernels launched inside it, and the rest of the busy time.  B1 and B4
+    are launched through ctypes, which the profiler does not link to the
+    range they run in: each launch's time is added to the range that
+    ``launch_ranges`` names for it in launch order, else to ``cast``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_device = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in events
+        if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and e.name not in PORT_RANGES)
+    busy, reach = 0.0, float("-inf")
+    for a, b, _ in on_device:          # union of the device intervals, us
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    wall = start.elapsed_time(end)
+    split = {"wall": wall, "device busy": busy / 1e3,
+             "idle share": 1.0 - busy / 1e3 / wall,
+             "device events": len(on_device)}
+    launches = [((b - a) / 1e3, label) for a, b, name in on_device
+                for label, kernel in (("B1", "cluster_cast_kernel"),
+                                      ("B4", "wide_cast_kernel"))
+                if kernel in name]
+    for label in ("B1", "B4"):
+        split[f"{label} launches"] = [ms for ms, k in launches if k == label]
+        split[f"{label} kernel"] = sum(split[f"{label} launches"])
+    for name in ranges:
+        split[name] = sum(e.device_time_total for e in events
+                          if e.name == name
+                          and e.device_type == DeviceType.CPU) / 1e3
+    for i, (ms, _) in enumerate(launches):
+        name = launch_ranges[i] if launch_ranges else "cast"
+        if name in split:
+            split[name] += ms
+    split["rest"] = split["device busy"] - sum(split[n] for n in ranges)
+    return split
+
+
+def take_hits(hits, idx):
+    from messyerraytracer_tpu_torch.core.types import Hits
+
+    return Hits(*(getattr(hits, f)[idx] for f in HIT_FIELDS))
+
+
+def same_hits(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in HIT_FIELDS)
+
+
+def headline_service(tlas, device):
+    """A RayTracerService over the headline meshes and instances, in the
+    headline's instance order (so the same flattened numbering)."""
+    from messyerraytracer_tpu_torch.api.service import RayTracerService
+
+    svc = RayTracerService(device=device)
+    blas = {}
+    for inst in tlas.instances:
+        if inst.blas_id in blas:
+            svc.add_instance(blas[inst.blas_id], inst.transform, inst.layers)
+        else:
+            svc.register_mesh(tlas.meshes[inst.blas_id].tri_array,
+                              inst.transform, inst.layers)
+            blas[inst.blas_id] = len(svc.tlas.meshes) - 1
+    return svc
+
+
+def shading(device):
+    """Two lights (a sun and a point light over the terrain), the default
+    sky and material."""
+    from messyerraytracer_tpu_torch.render.shade import (
+        default_materials, make_environment, make_lights)
+
+    lights = make_lights([
+        {"type": 0, "direction": (-0.4, 1.0, -0.2), "energy": 1.5},
+        {"type": 1, "position": (5.0, 12.0, 10.0), "energy": 400.0,
+         "range": 60.0}], device=device)
+    return lights, make_environment(device=device), default_materials(device)
+
+
+def phase_service(card: str, device, ctx: dict) -> dict:
+    """Phase 5a: RayTracerService on the headline scene — 524,288 random
+    rays through the Morton-sorting dispatcher onto B1, sorted against
+    unsorted, closest and any hit; then RayDispatcher on phase 4's 8-wide
+    pallas scene onto B4.  Each kernel is held against its plain version on
+    the sorted batch the dispatcher gives it."""
+    import torch
+
+    from messyerraytracer_tpu_torch.api.service import (
+        MODE_ANY_HIT, MODE_NEAREST, RayQuery)
+    from messyerraytracer_tpu_torch.core.brute import cast_rays_brute, parity
+    from messyerraytracer_tpu_torch.core.types import make_rays
+    from messyerraytracer_tpu_torch.dispatch.dispatcher import RayDispatcher
+    from messyerraytracer_tpu_torch.dispatch.morton import sort_rays_6d
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cluster_cast_cuda)
+    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
+        wide_cast_cuda)
+
+    t0 = time.time()
+    svc = headline_service(ctx["tlas"], device)
+    svc.build()
+    scene = svc.scene
+    check(torch.equal(scene.tris.v0, ctx["flat"].tris.v0)
+          and torch.equal(scene.tris.prim_id, ctx["flat"].tris.prim_id),
+          "service scene == phase 2's flat twin")
+    print(f"[{card}] phase 5a service build {time.time() - t0} s: "
+          f"{len(svc.tlas.instances)} instances, {scene.num_tris} "
+          f"triangles, backend {svc.get_backend()}", flush=True)
+    host = scene.bvh.host
+    rng = np.random.default_rng(3)
+    n = INCOHERENT
+    o = rng.uniform(host["aabb_min"][0], host["aabb_max"][0],
+                    (n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = make_rays(o, d, device=device)
+
+    # ---- the service path's own run: counts reset just before, read after
+    cluster_cast_cuda.launches = 0
+    wide_cast_cuda.launches = 0
+    res = {(mode, coherent): svc.submit(RayQuery(rays, mode=mode,
+                                                 coherent=coherent))
+           for mode in (MODE_NEAREST, MODE_ANY_HIT)
+           for coherent in (False, True)}
+    torch.cuda.synchronize()
+    b1 = cluster_cast_cuda.launches
+    check(b1 == 4 and wide_cast_cuda.launches == 0,
+          f"service: one B1 launch per submit (B1 {b1}, B4 "
+          f"{wide_cast_cuda.launches})")
+    hs, ss = res[MODE_NEAREST, False].hits, res[MODE_NEAREST, False].stats
+    hu, su = res[MODE_NEAREST, True].hits, res[MODE_NEAREST, True].stats
+    check(same_hits(hs, hu), "B1: sorted == unsorted, every field")
+    occ_s = res[MODE_ANY_HIT, False].hit_flags
+    check(torch.equal(occ_s, res[MODE_ANY_HIT, True].hit_flags),
+          "B1 any hit: sorted == unsorted")
+    check(torch.equal(occ_s, hs.hit), "any hit == closest hit's hit")
+    check(int(ss.stack_drops) == 0 and int(su.stack_drops) == 0,
+          "service: stack_drops == 0")
+    idx = torch.arange(4096, device=device) * (n // 4096)
+    hb, _ = cast_rays_brute(rays.take(idx), scene.tris, chunk=8192)
+    atol = anchor_atol(scene)
+    ok = parity(take_hits(hs, idx), hb, atol=atol)
+    check(ok, f"service parity vs brute (t atol {atol})")
+    print(f"[{card}] phase 5a service 512K random rays: B1 launches {b1}; "
+          f"sorted == unsorted bit for bit (closest and any hit); parity vs "
+          f"brute (4096 rays, t atol {atol}) {ok}; stack_drops 0; hit_rate "
+          f"{float(hs.hit.float().mean())}; tri_tests/ray sorted "
+          f"{int(ss.tri_tests) / n}, unsorted {int(su.tri_tests) / n}; "
+          f"pops/ray sorted {int(ss.bvh_nodes_visited) / n}, unsorted "
+          f"{int(su.bvh_nodes_visited) / n}", flush=True)
+
+    # ---- B1 against its plain version on the dispatcher's sorted batch
+    srt, _ = sort_rays_6d(rays, scene.bvh.aabb_min[0], scene.bvh.aabb_max[0])
+    for kw in ({}, {"any_hit": True}):
+        err, plain_ms, st = compare_kernel_plain(srt, scene.cluster,
+                                                 chunk=1 << 20, **kw)
+        print(f"[{card}] phase 5a B1 on the service's sorted batch "
+              f"{kw or 'closest'}: kernel == plain, max_abs_err {err}, "
+              f"plain {plain_ms} ms; lane occupancy {occupancy(st)}",
+              flush=True)
+
+    # ---- one profiled submit split by stage; submit times, CUDA events
+    split = device_split(lambda: svc.submit(RayQuery(rays)), (
+        "morton.key", "morton.sort", "morton.gather", "cast",
+        "morton.unshuffle"))
+    sub_s = cuda_ms(lambda: svc.submit(RayQuery(rays)), 5)
+    sub_u = cuda_ms(lambda: svc.submit(RayQuery(rays, coherent=True)), 5)
+    print(f"[{card}] phase 5a one sorted submit by stage (device ms, "
+          f"torch.profiler) {json.dumps(split)}; submit sorted {sub_s} ms ("
+          f"{n / sub_s / 1e3} Mrays/s), unsorted {sub_u} ms "
+          f"({n / sub_u / 1e3} Mrays/s)", flush=True)
+
+    # ---- the dispatcher on phase 4's 8-wide pallas scene, kernel B4
+    pallas = ctx["pallas"]
+    pd = RayDispatcher(pallas)
+    wide_cast_cuda.launches = 0
+    hp_s, sp_s = pd.cast_rays(rays)
+    hp_u, sp_u = pd.cast_rays(rays, coherent=True)
+    op_s = pd.any_hit_rays(rays)
+    op_u = pd.any_hit_rays(rays, coherent=True)
+    torch.cuda.synchronize()
+    b4 = wide_cast_cuda.launches
+    check(b4 == 4, f"dispatcher on pallas: one B4 launch per cast ({b4})")
+    check(same_hits(hp_s, hp_u), "B4: sorted == unsorted, every field")
+    check(torch.equal(op_s, op_u) and torch.equal(op_s, hp_s.hit),
+          "B4 any hit: sorted == unsorted == closest hit's hit")
+    check(int(sp_s.stack_drops) == 0, "pallas dispatcher: stack_drops == 0")
+    ok4 = parity(take_hits(hp_s, idx), hb)
+    check(ok4, "pallas dispatcher parity vs brute")
+    psrt, _ = sort_rays_6d(rays, pallas.bvh.aabb_min[0],
+                           pallas.bvh.aabb_max[0])
+    for kw in ({}, {"any_hit": True}):
+        err, plain_ms, _, st = compare_wide_plain(psrt, pallas.wide,
+                                                  chunk=1 << 20, **kw)
+        print(f"[{card}] phase 5a B4 on the dispatcher's sorted batch "
+              f"{kw or 'closest'}: kernel == plain, max_abs_err {err}, "
+              f"plain {plain_ms} ms; lane occupancy node/leaf "
+              f"{wide_occupancy(st)}", flush=True)
+    ms_s = cuda_ms(lambda: pd.cast_rays(rays), 5)
+    ms_u = cuda_ms(lambda: pd.cast_rays(rays, coherent=True), 5)
+    cast_s = cuda_ms(lambda: pallas.cast_rays(psrt), 5)
+    print(f"[{card}] phase 5a dispatcher on pallas (8-wide): B4 launches "
+          f"{b4}; sorted == unsorted bit for bit; parity (bench.py rule) "
+          f"{ok4}; tri_tests/ray sorted {int(sp_s.tri_tests) / n}, unsorted "
+          f"{int(sp_u.tri_tests) / n}; sorted {ms_s} ms ("
+          f"{n / ms_s / 1e3} Mrays/s; its cast alone {cast_s} ms), "
+          f"unsorted {ms_u} ms ({n / ms_u / 1e3} Mrays/s)", flush=True)
+    return {"b1": b1, "b4": b4}
+
+
+def phase_renderer(card: str, device, ctx: dict) -> int:
+    """Phase 5b: RayRenderer over ``tlas.instanced_scene()`` at 1920x1080:
+    COLOR with two lights and shadows over 2 accumulated frames, then one
+    frame of NORMAL, DEPTH, PRIM_ID and HIT_MASK; B1 held against its plain
+    version on the shadow wave.  Returns B1's launches."""
+    import torch
+
+    import messyerraytracer_tpu_torch as mrt
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cluster_cast_cuda)
+    from messyerraytracer_tpu_torch.render import framebuffer as fb
+    from messyerraytracer_tpu_torch.render.renderer import (
+        RayRenderer, RenderSettings, halton, shadow_rays)
+
+    tlas = ctx["tlas"]
+    inst = tlas.instanced_scene()
+    w, h = FRAME
+    cam = mrt.CameraParams.look_at((0, 26, 55), (0, 1, 0), fov_degrees=60.0)
+    lights, env, mats = shading(device)
+    color = RayRenderer(inst, cam, lights, env, mats, device=device,
+                        settings=RenderSettings(w, h, channels=(fb.COLOR,)))
+    aovs = (fb.NORMAL, fb.DEPTH, fb.PRIM_ID, fb.HIT_MASK)
+    debug = RayRenderer(inst, cam, lights, env, mats, device=device,
+                        settings=RenderSettings(w, h, channels=aovs,
+                                                accumulate=False))
+
+    # ---- the renderer's own run: counts reset just before, read after
+    cluster_cast_cuda.launches = 0
+    color.render_frame()
+    per_color = cluster_cast_cuda.launches
+    f_color = color.render_frame()
+    f_debug = debug.render_frame()
+    torch.cuda.synchronize()
+    launches = cluster_cast_cuda.launches
+    check(per_color == 2 and launches == 5,
+          f"renderer: B1 per COLOR frame {per_color} (trace + shadows), "
+          f"{launches} in the run")
+    check(color._accum_frames == 2, "two frames accumulated")
+    for frame, chans in ((f_color, (fb.COLOR,)), (f_debug, aovs)):
+        for ch in chans:
+            check(bool(torch.isfinite(frame.get(ch)).all()),
+                  f"1080p {ch}: every pixel finite")
+    ref = tlas.cast_rays_instanced(
+        mrt.generate_rays(cam, w, h, device=device))[0].hit
+    mask = f_debug.get(fb.HIT_MASK)[:, 0] > 0.5
+    check(torch.equal(mask, ref), "HIT_MASK == cast_rays_instanced's hit")
+    print(f"[{card}] phase 5b renderer 1080p on the instanced scene: B1 "
+          f"launches {launches} ({per_color} per COLOR frame); every pixel "
+          f"finite; HIT_MASK == the instanced cast's hit (hit_rate "
+          f"{float(mask.float().mean())}); mean sRGB "
+          f"{float(f_color.get(fb.COLOR)[:, :3].mean())}", flush=True)
+
+    # ---- B1 against its plain version on the first COLOR frame's shadow
+    # wave ([light][pixel], dead rays where a pixel missed), a strided slice
+    rays = mrt.generate_rays(cam, w, h, jitter=(halton(1, 2), halton(1, 3)),
+                             device=device)
+    hits, _ = inst.cast_rays(rays)
+    wave = shadow_rays(hits, lights, hits.hit)
+    m = min(SLICE, wave.count)
+    part = wave.take(torch.arange(m, device=device) * (wave.count // m))
+    err, plain_ms, st = compare_kernel_plain(part, inst.cluster_tlas,
+                                             chunk=1 << 20, any_hit=True)
+    dead = int((part.t_max < part.t_min).sum())
+    print(f"[{card}] phase 5b B1 on {m} of the {wave.count} shadow "
+          f"rays ({dead} dead), any hit: kernel == plain, max_abs_err "
+          f"{err}, plain {plain_ms} ms; lane occupancy {occupancy(st)}",
+          flush=True)
+
+    # ---- one profiled COLOR frame split by stage; frame times, CUDA events
+    split = device_split(color.render_frame, (
+        "render.raygen", "render.trace", "render.shadows", "render.shade"),
+        launch_ranges=("render.trace", "render.shadows"))
+    frames = {"COLOR frame": cuda_ms(color.render_frame, 3),
+              "4 AOVs frame": cuda_ms(debug.render_frame, 3)}
+    print(f"[{card}] phase 5b one COLOR frame by stage (device ms, "
+          f"torch.profiler) {json.dumps(split)}; frame ms (CUDA events) "
+          f"{json.dumps(frames)}", flush=True)
+    return launches
+
+
+def phase_path_tracers(card: str, device, ctx: dict) -> int:
+    """Phase 5c: the wavefront path tracer at 1920x1080, 3 bounces, on the
+    instanced scene and on the flat 1M cluster scene; B1 held against its
+    plain version on bounce 0's shadow wave and bounce 1's extend wave.
+    Returns B1's launches."""
+    import torch
+
+    from messyerraytracer_tpu_torch.dispatch.morton import sort_perm_6d
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cluster_cast_cuda)
+    from messyerraytracer_tpu_torch.render.pathtrace import dead_unless
+    from messyerraytracer_tpu_torch.render.wavefront import (
+        WavefrontPathTracer)
+
+    lights, env, mats = shading(device)
+    rays = frame_rays(device)
+    inst = ctx["tlas"].instanced_scene()
+    total = 0
+    for name, scene, cs, bounds in (
+            ("instanced", inst, inst.cluster_tlas, inst.bounds),
+            ("flat", ctx["flat"], ctx["flat"].cluster, None)):
+        pt = WavefrontPathTracer(scene, lights, env, mats, bounds=bounds)
+        check(pt.bounds is not None, f"{name}: carried-sort frame")
+        # ---- this tracer's own run: counts reset just before, read after
+        cluster_cast_cuda.launches = 0
+        img, wave = pt.trace_frame(rays, max_bounces=3, sample_index=1,
+                                   with_counts=True)
+        torch.cuda.synchronize()
+        launches = cluster_cast_cuda.launches
+        total += launches
+        check(launches == 8, f"{name} PT: B1 per frame {launches} (4 extend "
+              f"+ 4 connect)")
+        check(tuple(img.shape) == (rays.count, 3)
+              and bool(torch.isfinite(img).all()),
+              f"{name} PT: every pixel finite")
+        ref = pt._trace_frame_stages(rays, 3, 1, carried=False)
+        err = float((img - ref).abs().max())
+        check(err < 1e-4, f"{name} PT: carried == uncarried, max |diff| "
+              f"{err}")
+
+        # ---- B1 against its plain version on the waves of the carried
+        # frame: bounce 0's shadow rays (any hit) and bounce 1's extend
+        # rays in their carried order, both with dead rays
+        st = pt.generate(rays, 1)
+        st = pt.shade(st, scene.cast_rays(rays)[0], 0, 3)
+        shadow = st.shadow_ray
+        st = st.take(sort_perm_6d(st.ray, *pt.bounds, live=st.active))
+        extend = dead_unless(st.ray, st.active)
+        for what, r, kw in (("bounce 0 shadow", shadow, {"any_hit": True}),
+                            ("bounce 1 extend", extend, {})):
+            dead = int((r.t_max < r.t_min).sum())
+            check(dead > 0, f"{name} {what} wave holds dead rays")
+            werr, plain_ms, wst = compare_kernel_plain(r, cs, chunk=1 << 20,
+                                                       **kw)
+            print(f"[{card}] phase 5c {name} B1 on the {what} wave "
+                  f"({r.count} rays, {dead} dead): kernel == plain, "
+                  f"max_abs_err {werr}, plain {plain_ms} ms; lane occupancy "
+                  f"{occupancy(wst)}", flush=True)
+
+        ms = cuda_ms(lambda: pt.trace_frame(rays, max_bounces=3,
+                                            sample_index=1), 3)
+        split = device_split(
+            lambda: pt.trace_frame(rays, max_bounces=3, sample_index=1),
+            ("cast", "morton.key", "morton.sort", "morton.gather",
+             "morton.unshuffle", "wavefront.take"))
+        print(f"[{card}] phase 5c PT {name} 1080p x 3 bounces: {ms} ms/"
+              f"frame, {int(wave)} wave rays, {int(wave) / ms / 1e3} "
+              f"Mrays/s; B1 launches {launches}; carried vs uncarried max "
+              f"|diff| {err}; mean radiance {float(img.mean())}; one "
+              f"frame by stage (device ms, torch.profiler) "
+              f"{json.dumps(split)}", flush=True)
+    return total
+
+
+def phase_card_vs_cpu(card: str, device) -> None:
+    """Phase 5d: camera rays, every AOV and one wavefront frame of the
+    test-sized scenes on the card and on the CPU (the plain versions).
+    Camera rays, HIT_MASK, PRIM_ID and the PCG32 streams equal; float AOVs
+    within 5e-4 (POSITION modulo 1), radiance within 1e-4 on all but 2% of
+    pixels (the tests' tolerances)."""
+    import torch
+
+    import messyerraytracer_tpu_torch as mrt
+    from messyerraytracer_tpu_torch.accel.tlas import InstancedScene
+    from messyerraytracer_tpu_torch.render import framebuffer as fb
+    from messyerraytracer_tpu_torch.render.renderer import (
+        RayRenderer, RenderSettings)
+    from messyerraytracer_tpu_torch.render.wavefront import (
+        WavefrontPathTracer, _finalize)
+
+    w, h = SMALL_FRAME
+    cam = mrt.CameraParams.look_at((0, 6, 12), (0, 1, 0), fov_degrees=50)
+    rng = np.random.default_rng(5)
+    for c, (cw, ch), jit in (
+            (mrt.CameraParams.look_at((0, 26, 55), (0, 1, 0),
+                                      fov_degrees=60.0), FRAME, (0.3, 0.6)),
+            (cam, SMALL_FRAME, tuple(rng.uniform(0, 1, (h, w)).astype(
+                np.float32) for _ in range(2))),
+            (mrt.CameraParams.look_at((0, 2, 5), (0, 0, 0), ortho=True),
+             SMALL_FRAME, (0.5, 0.5))):
+        a, b = (mrt.generate_rays(c, cw, ch, jitter=jit, device=dev)
+                for dev in (device, torch.device("cpu")))
+        check(all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+                  for f in ("origin", "direction", "t_min", "t_max")),
+              f"generate_rays {cw}x{ch}: card == CPU bit for bit")
+    print(f"[{card}] phase 5d camera rays (1920x1080 perspective, 64x48 "
+          f"per-pixel jitter, 64x48 ortho): card == CPU bit for bit",
+          flush=True)
+    out = {}
+    for k, dev in enumerate((torch.device("cpu"), device)):
+        flat, ct = small_scenes(dev)
+        inst = InstancedScene(ct, tuple(torch.as_tensor(b, device=dev)
+                                        for b in ct.pair_bounds))
+        lights, env, mats = shading(dev)
+        for name, scene in (("flat", flat), ("instanced", inst)):
+            r = RayRenderer(scene, cam, lights, env, mats, device=dev,
+                            settings=RenderSettings(
+                                w, h, channels=fb.ALL_CHANNELS,
+                                accumulate=False))
+            frame = r.render_frame()
+            pt = WavefrontPathTracer(scene, lights, env, mats,
+                                     bounds=getattr(scene, "bounds", None))
+            rays = mrt.generate_rays(cam, w, h, device=dev)
+            st = pt.generate(rays, 2)
+            for bounce in range(3):
+                st = pt.shade(st, pt.extend(st, sort=bounce > 0), bounce, 2)
+                st = pt.connect(st, sort=bounce > 0)
+            out[k, name] = (frame, st.rng, _finalize(st))
+    for name in ("flat", "instanced"):
+        (fc, rc, ac), (fg, rg, ag) = out[0, name], out[1, name]
+        for ch in fb.ALL_CHANNELS:
+            a, b = fg.get(ch).cpu(), fc.get(ch)
+            if ch in (fb.HIT_MASK, fb.PRIM_ID):
+                check(torch.equal(a, b), f"{name} {ch}: card == CPU")
+                continue
+            diff = (a - b).abs()
+            if ch == fb.POSITION:
+                diff = torch.minimum(diff, 1.0 - diff)
+            check(float(diff.max()) <= 5e-4,
+                  f"{name} {ch}: card within 5e-4 of CPU "
+                  f"({float(diff.max())})")
+        check(torch.equal(rg.cpu(), rc), f"{name}: PCG32 streams card == CPU")
+        rel = ((ag.cpu() - ac).abs() / ac.abs().clamp_min(1.0)).amax(dim=1)
+        share = float((rel > 1e-4).float().mean())
+        check(bool(torch.isfinite(ag).all()) and share <= 0.02,
+              f"{name} PT: card within 1e-4 of CPU on 98% of pixels "
+              f"({share})")
+        print(f"[{card}] phase 5d {name} {w}x{h}: HIT_MASK, PRIM_ID and "
+              f"PCG32 streams card == CPU; float AOVs within 5e-4; PT "
+              f"pixels off by > 1e-4: {share}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -761,6 +1275,15 @@ def main() -> int:
     k1, ctx = phase_main_path(card, device)
     phase_wide_vs_plain(card, device)
     k4 = phase_pallas_path(card, device, ctx)
+    t5 = time.time()
+    p5 = phase_service(card, device, ctx)
+    p5["b1"] += phase_renderer(card, device, ctx)
+    p5["b1"] += phase_path_tracers(card, device, ctx)
+    phase_card_vs_cpu(card, device)
+    print(f"[{card}] phase 5 (serving and rendering) {time.time() - t5} s; "
+          f"B1 launches {p5['b1']}, B4 launches {p5['b4']}", flush=True)
+    k1["launches"] += p5["b1"]
+    k4["launches"] += p5["b4"]
     print(f"[{card}] chip_smoke total {time.time() - t_start} s",
           flush=True)
     src = "messyerraytracer_tpu_torch/kernels/csrc/"

@@ -28,9 +28,10 @@ BVH_BINS = 12
 MAX_LEAF_SIZE = 4
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class BVH:
-    """SoA BVH node arrays.
+    """SoA BVH node arrays; compared and hashed by identity (so per-scene
+    caches can hold it by weak reference).
 
     aabb_min / aabb_max: (M, 3) float32
     left_first:          (M,)   int32 — internal: right child; leaf: first slot

@@ -9,9 +9,10 @@ representations of one instanced scene, as in the reference:
   * the flattened world-space twin (``flat``, built lazily on first use),
     a plain ``RayScene`` over every instance's world triangles.
 
-Transform updates (``set_transform``, ``refit_tlas``) wait for ROADMAP
-A.5; the two-level and frontier casts for A.10; ``instanced_scene`` for
-the rendering slice (A.8).
+``instanced_scene`` gives renderers and path tracers a scene-like view of
+the instanced tables.  Transform updates (``set_transform``,
+``refit_tlas``) wait for ROADMAP A.5; the two-level and frontier casts
+for A.10.
 """
 
 from __future__ import annotations
@@ -84,6 +85,39 @@ class BLASInstance:
         )
         wc = corners @ self.transform[:, :3].T + self.transform[:, 3]
         return wc.min(axis=0), wc.max(axis=0)
+
+
+@dataclasses.dataclass
+class InstancedScene:
+    """Scene-like cast view over the instanced ``ClusterTLAS``: the
+    ``RayScene`` cast interface (``cast_rays`` -> (hits, stats),
+    ``any_hit_rays`` -> flags) on kernel B1's instanced variant, so
+    renderers and path tracers consume the two-level tables directly —
+    memory ~ meshes, prim ids in the flattened numbering.  ``bounds`` is
+    the world AABB (lo, hi) of the pair tree's root, for the bounce-wave
+    coherence sort.  ``incoherent`` is accepted and ignored: the port has
+    one kernel configuration."""
+
+    cluster_tlas: object
+    bounds: tuple
+
+    def cast_rays(self, rays: Rays, query_mask=ALL_LAYERS,
+                  incoherent: bool = False):
+        from ..kernels.cluster_v2 import cast_rays_cluster_tlas_v2
+
+        del incoherent
+        hits, stats, _, _ = cast_rays_cluster_tlas_v2(
+            rays, self.cluster_tlas, int(query_mask))
+        return hits, stats
+
+    def any_hit_rays(self, rays: Rays, query_mask=ALL_LAYERS,
+                     incoherent: bool = False) -> torch.Tensor:
+        from ..kernels.cluster_v2 import cast_rays_cluster_tlas_v2
+
+        del incoherent
+        _, _, occluded, _ = cast_rays_cluster_tlas_v2(
+            rays, self.cluster_tlas, int(query_mask), any_hit=True)
+        return occluded
 
 
 class SceneTLAS:
@@ -214,6 +248,20 @@ class SceneTLAS:
                                          query_mask=query_mask,
                                          any_hit=any_hit)
 
+    def instanced_scene(self) -> InstancedScene:
+        """Scene-like view over the instanced cluster tables for renderers
+        and path tracers: full frames with memory ~ meshes, never
+        flattening.  Prim ids are in the flattened numbering, so material
+        and attribute tables built for the flat scene apply."""
+        if self._ctlas is None:
+            self.build_instanced()
+        ct = self._ctlas
+        lo, hi = ct.pair_bounds
+        return InstancedScene(
+            cluster_tlas=ct,
+            bounds=(torch.as_tensor(lo, device=self.device),
+                    torch.as_tensor(hi, device=self.device)))
+
     # ---- not ported yet ----------------------------------------------
     def set_transform(self, instance_id: int, transform) -> None:
         raise NotImplementedError(
@@ -237,8 +285,3 @@ class SceneTLAS:
                                  any_hit: bool = False):
         raise NotImplementedError(
             "cast_rays_two_level_fast is not ported yet (ROADMAP A.10)")
-
-    def instanced_scene(self):
-        raise NotImplementedError(
-            "instanced_scene (the renderer's view) is not ported yet "
-            "(ROADMAP A.8)")

@@ -109,11 +109,15 @@ def cast_rays_brute(rays: Rays, tris: Triangles,
 TIE_RTOL = 4e-6   # ~8 ulps at f32: formulation noise, not geometry
 
 
-def parity(hits: Hits, oracle: Hits, rtol: float = 1e-5) -> bool:
+def parity(hits: Hits, oracle: Hits, rtol: float = 1e-5,
+           atol: float = 1e-8) -> bool:
     """t + prim_id parity against the oracle (the JAX package's
     ``bench.py::parity`` rule).
 
-    Every ray's t must agree to ``rtol``.  prim_id must be equal, except
+    Every ray's t must agree to ``rtol`` (plus ``atol``, numpy's default
+    as in bench.py; a caller whose rays start next to surfaces passes the
+    few ulps of the scene's coordinates that anchored arithmetic adds to
+    t).  prim_id must be equal, except
     on shared-edge ties: the oracle breaks ties by lowest index, a
     traversal by visit order, and the two evaluate the edge with
     different (anchored vs classic) Moller-Trumbore arithmetic — so a prim
@@ -122,7 +126,7 @@ def parity(hits: Hits, oracle: Hits, rtol: float = 1e-5) -> bool:
     ts, tb = hits.t.cpu().numpy(), oracle.t.cpu().numpy()
     tie = np.abs(ts - tb) <= TIE_RTOL * np.maximum(np.abs(tb), 1.0)
     return bool(np.all((ps == pb) | tie)) and bool(
-        np.allclose(ts, tb, rtol=rtol))
+        np.allclose(ts, tb, rtol=rtol, atol=atol))
 
 
 def any_hit_brute(rays: Rays, tris: Triangles,

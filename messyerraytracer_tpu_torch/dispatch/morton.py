@@ -1,10 +1,170 @@
-"""Pixel-block swizzle for coherent primary rays (numpy; the JAX package's
-dispatch/morton.py::raster_block_permutation).  The Morton ray sorts wait
-for the dispatch slice (ROADMAP A.6)."""
+"""Morton-code ray sorting for traversal coherence, and the pixel-block
+swizzle for coherent primary rays.
+
+PyTorch counterpart of the JAX package's dispatch/morton.py: the same bit
+spread, quantization and keys, bit for bit.  Keys are computed in int64
+(every key fits in 31 bits; the wider type keeps the shifts of the two-pass
+key in the dispatcher from overflowing) and returned as int32 where the JAX
+functions return int32.  The sort is ``torch.sort(..., stable=True)``, the
+counterpart of the JAX package's stable ``jnp.argsort``; permutations are
+int64 index tensors with ``sorted[i] = rays[perm[i]]``.
+
+The key, sort, gather and unshuffle steps run inside ``torch.profiler``
+ranges named ``morton.key``, ``morton.sort``, ``morton.gather`` and
+``morton.unshuffle``, so a profile of any caller splits its device time by
+step.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..core.types import Hits, Rays
+
+DEAD_KEY = 0x7FFFFFFF   # sort key of a dead ray: above every live key
+
+
+def morton_spread_10(v: torch.Tensor) -> torch.Tensor:
+    """Spread 10 bits to 30 by inserting 2 zero bits between each bit."""
+    v = v.to(torch.int64) & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton_encode_3d(x, y, z) -> torch.Tensor:
+    """30-bit 3D Morton code (int64)."""
+    return ((morton_spread_10(x) << 2) | (morton_spread_10(y) << 1)
+            | morton_spread_10(z))
+
+
+def _quantize(n: torch.Tensor, scale: float) -> torch.Tensor:
+    """Unit-box coordinates (clamped to [0, 1]) to integer cells."""
+    return (n.clamp(0.0, 1.0) * scale).to(torch.int64)
+
+
+def _unit_box(origin: torch.Tensor, lo, hi) -> torch.Tensor:
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=origin.device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=origin.device)
+    return (origin - lo) / torch.clamp_min(hi - lo, 1e-12)
+
+
+def ray_direction_morton(direction: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 Morton keys from direction vectors, [-1,1]^3 ->
+    [0,1023]^3."""
+    q = _quantize((direction + 1.0) * 0.5, 1023.0)
+    return morton_encode_3d(q[:, 0], q[:, 1], q[:, 2]).to(torch.int32)
+
+
+def ray_position_morton(origin: torch.Tensor, lo, hi) -> torch.Tensor:
+    """(N,) int32 origin Morton keys over a scene AABB (lo, hi)."""
+    q = _quantize(_unit_box(origin, lo, hi), 1023.0)
+    return morton_encode_3d(q[:, 0], q[:, 1], q[:, 2]).to(torch.int32)
+
+
+def _octant(direction: torch.Tensor) -> torch.Tensor:
+    """3-bit direction octant (x sign high), int64."""
+    neg = (direction < 0).to(torch.int64)
+    return (neg[:, 0] << 2) | (neg[:, 1] << 1) | neg[:, 2]
+
+
+def ray_6d_morton(origin: torch.Tensor, direction: torch.Tensor,
+                  lo, hi) -> torch.Tensor:
+    """Origin-major 6D coherence key (int32): 27-bit origin Morton (9
+    bits/axis over the scene AABB) with the 3-bit direction octant as the
+    minor bits."""
+    q = _quantize(_unit_box(origin, lo, hi), 511.0)
+    okey = morton_encode_3d(q[:, 0], q[:, 1], q[:, 2])
+    return ((okey << 3) | _octant(direction)).to(torch.int32)
+
+
+def _stable_argsort(keys: torch.Tensor) -> torch.Tensor:
+    with record_function("morton.sort"):
+        return torch.sort(keys, stable=True).indices
+
+
+def sort_rays_by_direction(rays: Rays) -> tuple[Rays, torch.Tensor]:
+    """Stable-sort rays by direction Morton key.  Returns (sorted_rays,
+    perm) with ``sorted[i] = rays[perm[i]]``."""
+    with record_function("morton.key"):
+        keys = ray_direction_morton(rays.direction)
+    perm = _stable_argsort(keys)
+    return apply_permutation(rays, perm), perm
+
+
+def sort_rays_6d(rays: Rays, lo, hi, octant_major: bool = True,
+                 dir_bits: int = 1) -> tuple[Rays, torch.Tensor]:
+    """Stable-sort rays by the 6D key (incoherent batches): octant-major
+    (``dir_bits`` direction Morton bits per axis above the origin Morton
+    bits) by default, origin-major with the octant minor otherwise.
+    Returns (sorted_rays, perm) with ``sorted[i] = rays[perm[i]]``."""
+    perm = sort_perm_6d(rays, lo, hi, octant_major=octant_major,
+                        dir_bits=dir_bits)
+    return apply_permutation(rays, perm), perm
+
+
+def sort_perm_6d(rays: Rays, lo, hi, octant_major: bool = True,
+                 dir_bits: int = 1, live=None) -> torch.Tensor:
+    """The 6D coherence-sort permutation alone (no gathers applied), for
+    callers that permute a larger carried state themselves.
+
+    ``live`` (bool (N,), optional): dead rays get ``DEAD_KEY``, above every
+    live key (< 2^28), so the stable sort puts them at the end in their
+    input order."""
+    with record_function("morton.key"):
+        keys = _keys_6d(rays, lo, hi, octant_major, dir_bits)
+        if live is not None:
+            keys = torch.where(live, keys, torch.full_like(keys, DEAD_KEY))
+    return _stable_argsort(keys)
+
+
+def _keys_6d(rays: Rays, lo, hi, octant_major: bool = True,
+             dir_bits: int = 1) -> torch.Tensor:
+    """The int64 sort keys of ``sort_perm_6d`` (live rays only)."""
+    if octant_major:
+        b = dir_bits
+        qmax = (1 << b) - 1
+        nd = ((rays.direction + 1.0) * 0.5).clamp(0.0, 1.0)
+        qd = torch.clamp_max((nd * float(qmax + 1)).to(torch.int64), qmax)
+        dirm = morton_encode_3d(qd[:, 0], qd[:, 1], qd[:, 2])
+        qo = _quantize(_unit_box(rays.origin, lo, hi), 511.0)
+        okey = morton_encode_3d(qo[:, 0], qo[:, 1], qo[:, 2])  # 27 bits
+        minor = 28 - 3 * b
+        keys = (dirm << minor) | (okey >> (27 - minor))
+    else:
+        keys = ray_6d_morton(rays.origin, rays.direction, lo,
+                             hi).to(torch.int64)
+    return keys
+
+
+def apply_permutation(rays: Rays, perm: torch.Tensor) -> Rays:
+    """``rays[perm]`` as a new batch."""
+    with record_function("morton.gather"):
+        return rays.take(perm)
+
+
+def _unpermute(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``x = y[perm]``: ``out[perm[i]] = x[i]``."""
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
+
+
+def unshuffle_hits(hits: Hits, perm: torch.Tensor) -> Hits:
+    """Invert the sort permutation on a Hits batch."""
+    with record_function("morton.unshuffle"):
+        return Hits(*(_unpermute(getattr(hits, f), perm) for f in (
+            "t", "position", "normal", "u", "v", "prim_id", "hit_layers")))
+
+
+def unshuffle_flags(flags: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Invert the permutation on a bool array."""
+    with record_function("morton.unshuffle"):
+        return _unpermute(flags, perm)
 
 
 def raster_block_permutation(width: int, height: int, block: int = 32,

@@ -52,6 +52,9 @@ class ClusterTLAS(ClusterScene):
     iprim      (Ni,) i32 — global prim-id base (the flattened numbering)
     iinv       (Ni, 12) f32 — world->object rows [R^-1 | -R^-1 t]
     ifwd       (Ni, 9) f32 — normal matrix (R^-1)^T, row-major
+    pair_bounds  ((3,), (3,)) f32 numpy — the world AABB of the pair
+                 tree's root, from its host copy (None for tables
+                 converted from the JAX package)
     """
 
     inst_cbase: torch.Tensor
@@ -60,6 +63,7 @@ class ClusterTLAS(ClusterScene):
     ifwd: torch.Tensor
     n_inst: int
     num_pairs: int
+    pair_bounds: tuple | None = None
 
 
 def _to_mat34(t) -> np.ndarray:
@@ -216,7 +220,9 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
     return ClusterTLAS(**_put(tables, device), tcap=tcap,
                        dummy_enc=2 * nw, num_clusters=total_c,
                        stack_need=stack_need, n_inst=ni,
-                       num_pairs=len(pgid))
+                       num_pairs=len(pgid),
+                       pair_bounds=(host["aabb_min"][0].copy(),
+                                    host["aabb_max"][0].copy()))
 
 
 def set_transforms(ct: ClusterTLAS, transforms: list) -> ClusterTLAS:

@@ -49,6 +49,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.types import (
     INV_DIR_EPS,
@@ -482,8 +483,11 @@ def _hits_from_buffers_v2(fout, iout, rays: Rays):
 
 
 def _cast(rays, cs, query_mask, any_hit):
-    fout, iout, counters = cluster_cast(rays, cs, query_mask, any_hit)
-    hits, found, tt, inst, nv = _hits_from_buffers_v2(fout, iout, rays)
+    """Kernel B1 and its hit assembly, inside the profiler range
+    ``cast``."""
+    with record_function("cast"):
+        fout, iout, counters = cluster_cast(rays, cs, query_mask, any_hit)
+        hits, found, tt, inst, nv = _hits_from_buffers_v2(fout, iout, rays)
     dev = rays.origin.device
     stats = RayStats(
         rays_cast=torch.tensor(rays.count, dtype=torch.int64, device=dev),

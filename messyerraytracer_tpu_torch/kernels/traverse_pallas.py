@@ -51,6 +51,7 @@ import os
 import threading
 
 import torch
+from torch.profiler import record_function
 
 from ..core.types import NO_HIT, Hits, Rays, RayStats, safe_inv_direction
 from .cluster import _kstack_for
@@ -399,16 +400,19 @@ def cast_rays_wide(rays: Rays, scene: WideScene, query_mask: int = -1,
     boxes.  The other arguments are the JAX kernel's TPU layout and
     schedule knobs (interpret, n_slots, srows, cond_drain, columnar True /
     False / "leaf", and the streaming flags stream_leaves / stream_nodes):
-    accepted and ignored — the same kernel serves every one of them."""
+    accepted and ignored — the same kernel serves every one of them.
+    Kernel B4 and the hit assembly run inside the profiler range
+    ``cast``."""
     del interpret, n_slots, stream_leaves, stream_nodes, srows, cond_drain
     if columnar not in COLUMNAR:
         raise ValueError(f"columnar must be one of {COLUMNAR}")
     quantized = columnar == "q"
     if quantized and scene.branching != WIDE8_CAP:
         raise ValueError("columnar='q' needs the 8-wide layout")
-    fout, iout, counters = wide_cast(rays, scene, query_mask, any_hit,
-                                     quantized)
-    hits, found = _hits_from_slots(fout, iout, rays, scene)
+    with record_function("cast"):
+        fout, iout, counters = wide_cast(rays, scene, query_mask, any_hit,
+                                         quantized)
+        hits, found = _hits_from_slots(fout, iout, rays, scene)
     dev = rays.origin.device
     stats = RayStats(
         rays_cast=torch.tensor(rays.count, dtype=torch.int64, device=dev),

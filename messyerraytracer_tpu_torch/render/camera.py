@@ -10,8 +10,15 @@ render/camera.py; same semantics):
   * debug grid: half_w = tan(fov/2), half_h = half_w * (h/w), v NOT
     flipped (positive v = camera up)
 
-Rays come out in row-major raster order.  They are computed on the CPU in
-float32 and then moved to ``device``, so every device sees the same rays.
+Rays come out in row-major raster order, built on ``device``.  Each step
+is one float32 operation, computed in float64 and rounded to float32
+(``_r32``): for +, -, *, / and sqrt of float32 operands that gives the
+correctly rounded float32 result (float64 carries more than twice
+float32's precision).  Neither device's own float32 code is: PyTorch's CPU
+sqrt misses the nearest float32 on some inputs, and CUDA turns a
+division by a scalar into a multiply by its reciprocal.  The CPU and the
+card so give the same rays, bit for bit: those of exact float32
+arithmetic done step by step.
 """
 
 from __future__ import annotations
@@ -24,8 +31,17 @@ import torch
 from ..core.types import DEFAULT_DEVICE, Rays, make_rays
 
 
-def _normalize(v):
-    return v / torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+def _r32(x: torch.Tensor) -> torch.Tensor:
+    """Round float64 values to the nearest float32, kept in float64."""
+    return x.to(torch.float32).to(torch.float64)
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    """v / |v| for float32 values held in float64, rounded to float32
+    after every operation."""
+    sq = _r32(v * v)
+    n2 = _r32(_r32(sq[..., 0:1] + sq[..., 1:2]) + sq[..., 2:3])
+    return _r32(v / _r32(torch.sqrt(n2)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,33 +86,41 @@ def generate_rays(cam: CameraParams, width: int, height: int,
     """Generate width*height rays in raster order (row-major, top-left
     first).  ``jitter`` is the sub-pixel offset in [0,1): a pair of
     scalars or of (H, W) arrays."""
-    origin = torch.tensor(cam.origin, dtype=torch.float32)
-    basis = torch.tensor(cam.basis, dtype=torch.float32)
-    jx, jy = (torch.as_tensor(j, dtype=torch.float32) for j in jitter)
+    dev = torch.device(device)
 
-    x = torch.arange(width, dtype=torch.float32)[None, :]
-    y = torch.arange(height, dtype=torch.float32)[:, None]
-    u = (2.0 * (x + jx) / width) - 1.0
-    v = 1.0 - (2.0 * (y + jy) / height)
-    u, v = torch.broadcast_tensors(u, v)
+    def f64(x):
+        """float32 values (a float is rounded to float32 first, as a float32
+        operation with a scalar operand does), held in float64."""
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=dev).to(torch.float64)
+
+    origin, basis = f64(cam.origin), f64(cam.basis)
+    jx, jy = (f64(j) for j in jitter)
+
+    x = torch.arange(width, dtype=torch.float64, device=dev)[None, :]
+    y = torch.arange(height, dtype=torch.float64, device=dev)[:, None]
+    u = _r32(_r32(2.0 * _r32(x + jx)) / f64(width)) - 1.0
+    v = 1.0 - _r32(_r32(2.0 * _r32(y + jy)) / f64(height))
+    u, v = torch.broadcast_tensors(_r32(u), _r32(v))
 
     if not cam.ortho:
         tan_half = float(np.tan(np.deg2rad(cam.fov_degrees) * 0.5))
         half_w = tan_half * (width / height)
-        view_dir = torch.stack([u * half_w, v * tan_half,
-                                -torch.ones_like(u)], dim=-1)
-        world_dir = _normalize(view_dir[..., 0:1] * basis[:, 0]
-                               + view_dir[..., 1:2] * basis[:, 1]
-                               + view_dir[..., 2:3] * basis[:, 2])
-        o = origin.expand(world_dir.shape)
-        return make_rays(o.reshape(-1, 3), world_dir.reshape(-1, 3),
-                         device=device)
+        a = _r32(u * f64(half_w))[..., None]
+        b = _r32(v * f64(tan_half))[..., None]
+        world = _r32(_r32(_r32(a * basis[:, 0]) + _r32(b * basis[:, 1]))
+                     - basis[:, 2])
+        d = _normalize(world).to(torch.float32)
+        o = origin.to(torch.float32).expand(d.shape)
+        return make_rays(o.reshape(-1, 3), d.reshape(-1, 3), device=dev)
     half_h = cam.ortho_size * 0.5
     half_w = half_h * (width / height)
-    o = (origin + basis[:, 0] * (u * half_w)[..., None]
-         + basis[:, 1] * (v * half_h)[..., None])
-    d = (-basis[:, 2]).expand(o.shape)
-    return make_rays(o.reshape(-1, 3), d.reshape(-1, 3), device=device)
+    uw = _r32(u * f64(half_w))[..., None]
+    vh = _r32(v * f64(half_h))[..., None]
+    o = _r32(_r32(origin + _r32(basis[:, 0] * uw)) + _r32(basis[:, 1] * vh))
+    o = o.to(torch.float32)
+    d = (-basis[:, 2]).to(torch.float32).expand(o.shape)
+    return make_rays(o.reshape(-1, 3), d.reshape(-1, 3), device=dev)
 
 
 def debug_grid_rays(origin, forward, grid_w: int = 16, grid_h: int = 12,
@@ -124,7 +148,8 @@ def debug_grid_rays(origin, forward, grid_w: int = 16, grid_h: int = 12,
     u = (2.0 * (x + 0.5) / grid_w - 1.0) * half_w
     v = (2.0 * (y + 0.5) / grid_h - 1.0) * half_h
     u, v = torch.broadcast_tensors(u, v)
-    d = _normalize(torch.from_numpy(fwd) + torch.from_numpy(right)
-                   * u[..., None] + torch.from_numpy(up) * v[..., None])
+    d = _normalize((torch.from_numpy(fwd) + torch.from_numpy(right)
+                    * u[..., None] + torch.from_numpy(up) * v[..., None]
+                    ).to(torch.float64)).to(torch.float32)
     o_arr = torch.from_numpy(o).expand(d.shape)
     return make_rays(o_arr.reshape(-1, 3), d.reshape(-1, 3), device=device)

@@ -105,6 +105,17 @@ def jax_cluster_scene(tris, tcap, layers=None):
                                      tcap=tcap, host_arrange=True)
 
 
+def jax_fields(struct) -> dict:
+    """A JAX struct's fields, arrays as numpy: the keyword arguments of the
+    port's ``*_from_jax`` converters."""
+    import dataclasses
+
+    return {f.name: (np_of(getattr(struct, f.name))
+                     if hasattr(getattr(struct, f.name), "shape")
+                     else getattr(struct, f.name))
+            for f in dataclasses.fields(struct)}
+
+
 def np_of(x):
     """A tensor or a JAX array as numpy."""
     if hasattr(x, "detach"):
