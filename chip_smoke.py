@@ -58,7 +58,24 @@ wide_cast.cu; nvcc -> ctypes), then:
      service batch, closest and any hit; the renderer's shadow wave; the
      path tracers' shadow and extend waves with their dead rays); one
      call of each path is profiled (torch.profiler) and its device time
-     split by the port's ``record_function`` ranges.
+     split by the port's ``record_function`` ranges;
+  6. dynamic scenes, debug draw modes and checkpoints at full size, over
+     phase 2's headline TLAS and phase 4's pallas scene: (a) 100 instances
+     move through ``SceneTLAS.set_transform`` (timed, wall and device),
+     the 1080p frame is cast through the moved instanced tables, checked
+     against brute over the moved world and B1 held against its plain
+     version on a slice; (b) ``refit_tlas`` of the 1M flat twin, timed
+     beside the twin's build, its cast against the instanced one and its
+     tables bit for bit against the same refit on the CPU; (c) the
+     pallas scene's terrain displaced through ``RayScene.refit``, B4 held
+     against its plain version, parity with brute; (d) the service's
+     ``set_transform`` and ``refit``, then 524,288 random rays sorted ==
+     unsorted; (e) ``cast_debug_rays`` in all 7 modes on a 1920x1080 grid
+     over the refit twin, the heatmap's counts against the plain
+     version's, ``bvh_wireframe`` timed; (f) ``save_scene`` /
+     ``load_scene`` of the twin, timed, the loaded frame equal to the
+     saved one's.  Each part's B1 / B4 launches are counted from its own
+     run and added to the kernels line.
 
 Every number is printed beside the card's name and power limit.  The last
 two lines are the kernel summary and the result, both JSON.  Exits
@@ -774,7 +791,8 @@ HIT_FIELDS = ("t", "position", "normal", "u", "v", "prim_id", "hit_layers")
 # the port's torch.profiler ranges (device_split reads them)
 PORT_RANGES = ("cast", "morton.key", "morton.sort", "morton.gather",
                "morton.unshuffle", "wavefront.take", "render.raygen",
-               "render.trace", "render.shadows", "render.shade")
+               "render.trace", "render.shadows", "render.shade",
+               "refit.set_transforms", "refit.tlas", "refit.scene")
 
 
 # Random rays start anywhere in the scene, many next to a surface.  B1's t
@@ -788,9 +806,9 @@ ANCHOR_ULPS = 8
 
 
 def anchor_atol(scene) -> float:
-    host = scene.bvh.host
-    big = max(np.abs(host["aabb_min"][0]).max(),
-              np.abs(host["aabb_max"][0]).max())
+    lo, hi = (b.cpu().numpy() for b in (scene.bvh.aabb_min[0],
+                                         scene.bvh.aabb_max[0]))
+    big = max(np.abs(lo).max(), np.abs(hi).max())
     return float(ANCHOR_ULPS * np.finfo(np.float32).eps * big)
 
 
@@ -894,6 +912,20 @@ def shading(device):
     return lights, make_environment(device=device), default_materials(device)
 
 
+def service_rays(scene, device):
+    """INCOHERENT random rays from a seed: origins uniform in the scene's
+    root box, directions uniform."""
+    from messyerraytracer_tpu_torch.core.types import make_rays
+
+    lo, hi = (b.cpu().numpy() for b in (scene.bvh.aabb_min[0],
+                                         scene.bvh.aabb_max[0]))
+    rng = np.random.default_rng(3)
+    o = rng.uniform(lo, hi, (INCOHERENT, 3)).astype(np.float32)
+    d = rng.standard_normal((INCOHERENT, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return make_rays(o, d, device=device)
+
+
 def phase_service(card: str, device, ctx: dict) -> dict:
     """Phase 5a: RayTracerService on the headline scene — 524,288 random
     rays through the Morton-sorting dispatcher onto B1, sorted against
@@ -905,7 +937,6 @@ def phase_service(card: str, device, ctx: dict) -> dict:
     from messyerraytracer_tpu_torch.api.service import (
         MODE_ANY_HIT, MODE_NEAREST, RayQuery)
     from messyerraytracer_tpu_torch.core.brute import cast_rays_brute, parity
-    from messyerraytracer_tpu_torch.core.types import make_rays
     from messyerraytracer_tpu_torch.dispatch.dispatcher import RayDispatcher
     from messyerraytracer_tpu_torch.dispatch.morton import sort_rays_6d
     from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
@@ -916,6 +947,7 @@ def phase_service(card: str, device, ctx: dict) -> dict:
     t0 = time.time()
     svc = headline_service(ctx["tlas"], device)
     svc.build()
+    ctx["svc"] = svc
     scene = svc.scene
     check(torch.equal(scene.tris.v0, ctx["flat"].tris.v0)
           and torch.equal(scene.tris.prim_id, ctx["flat"].tris.prim_id),
@@ -923,14 +955,8 @@ def phase_service(card: str, device, ctx: dict) -> dict:
     print(f"[{card}] phase 5a service build {time.time() - t0} s: "
           f"{len(svc.tlas.instances)} instances, {scene.num_tris} "
           f"triangles, backend {svc.get_backend()}", flush=True)
-    host = scene.bvh.host
-    rng = np.random.default_rng(3)
-    n = INCOHERENT
-    o = rng.uniform(host["aabb_min"][0], host["aabb_max"][0],
-                    (n, 3)).astype(np.float32)
-    d = rng.standard_normal((n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = make_rays(o, d, device=device)
+    rays = service_rays(scene, device)
+    n = rays.count
 
     # ---- the service path's own run: counts reset just before, read after
     cluster_cast_cuda.launches = 0
@@ -1257,6 +1283,362 @@ def phase_card_vs_cpu(card: str, device) -> None:
               f"pixels off by > 1e-4: {share}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: dynamic scenes, debug draw modes and checkpoints
+# ---------------------------------------------------------------------------
+
+DEBUG_EYE, DEBUG_FWD = (0.0, 26.0, 55.0), (0.0, -25.0, -55.0)
+
+
+def headline_moves(tlas) -> dict:
+    """100 instance moves of the headline scene: the 60 high-detail
+    spheres up by 0.5, the 40 rocks each rotated about y (seeded)."""
+    rng = np.random.default_rng(17)
+    meshes_of = [i.blas_id for i in tlas.instances]
+    moves = {}
+    for k, inst in enumerate(tlas.instances):
+        m = inst.transform.copy()
+        if meshes_of[k] == 1:                   # high-detail sphere
+            m[1, 3] += 0.5
+        elif meshes_of[k] == 3:                 # rock
+            a = rng.uniform(0.0, 2.0 * np.pi)
+            c, n = np.cos(a), np.sin(a)
+            rot = np.array([[c, 0, n], [0, 1, 0], [-n, 0, c]], np.float32)
+            m[:, :3] = rot @ m[:, :3]
+        else:
+            continue
+        moves[k] = m
+    return moves
+
+
+def to_device(x, device):
+    """A copy of a scene object (dataclasses of tensors, tuples, dicts) with
+    every tensor on ``device``."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple):
+        return tuple(to_device(v, device) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: to_device(getattr(x, f.name), device)
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def bit_equal(a, b) -> bool:
+    """Equal bit patterns (NaN == NaN), on the device of ``a``."""
+    import torch
+
+    b = b.to(a.device)
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def sync_s(fn):
+    """(result, wall seconds) of ``fn`` fenced by synchronization."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def world_triangles(tlas, device):
+    from messyerraytracer_tpu_torch.core.types import make_triangles
+
+    w = tlas._world_tris_np()
+    return make_triangles(w[:, 0], w[:, 1], w[:, 2], device=device)
+
+
+# A ray that grazes a triangle's edge can hit it in object space (the
+# instanced cast) and miss it in world space (the flat twin, brute), or the
+# reverse: world coordinates up to 40 carry ~4e-6 of rounding, which is a
+# barycentric error of ~1e-4 on the headline's smallest triangles (the
+# sphere poles).  The twin and the instanced cast may disagree off ties
+# only on such rays (on the H100: 1 ray of the 1080p frame, unmoved and
+# moved alike, at u + v = 1 - 3.6e-5; PERF.md).
+GRAZE_BARY = 1e-4
+
+
+def twin_vs_instanced(hf, hi, rays, world_tris):
+    """Where the twin's and the instanced frame's prims differ off ties,
+    check that brute over ``world_tris`` confirms one of them and that the
+    other's hit grazes an edge (min(u, v, 1 - u - v) < GRAZE_BARY) or is
+    a miss where the confirmed one grazes.  Returns (prims equal, a
+    summary)."""
+    import torch
+
+    from messyerraytracer_tpu_torch.core.brute import cast_rays_brute
+
+    same = hf.prim_id == hi.prim_id
+    both = hf.hit & hi.hit
+    tie = both & ((hf.t - hi.t).abs()
+                  <= 4e-6 * torch.maximum(hi.t.abs(), torch.ones_like(hi.t)))
+    off = torch.nonzero(~same & ~tie)[:, 0]
+    check(off.numel() <= 4096, f"twin vs instanced: {off.numel()} rays "
+          f"differ off ties")
+    if not off.numel():
+        return same, {"rays": 0}
+    hb, _ = cast_rays_brute(rays.take(off), world_tris, chunk=8192)
+
+    def edge(h):
+        u, v = h.u[off], h.v[off]
+        return torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+
+    ef, ei = edge(hf), edge(hi)
+    twin_ok = hf.prim_id[off] == hb.prim_id
+    inst_ok = hi.prim_id[off] == hb.prim_id
+    graze = torch.where(twin_ok, torch.where(hi.hit[off], ei, ef),
+                        torch.where(hf.hit[off], ef, ei))
+    ok = (twin_ok | inst_ok) & (graze < GRAZE_BARY)
+    summary = {"rays": off.numel(), "brute sides with the twin":
+               int(twin_ok.sum()), "with the instanced": int(inst_ok.sum()),
+               "largest edge distance": float(graze.max())}
+    check(bool(ok.all()), f"twin vs instanced off ties are edge grazes "
+          f"{json.dumps(summary)}")
+    return same, summary
+
+
+def phase_dynamic(card: str, device, ctx: dict) -> dict:
+    """Phase 6: dynamic scenes, debug draw modes and checkpoints at full
+    size.  Returns B1's and B4's launches from its paths' own runs."""
+    import os
+    import tempfile
+
+    import torch
+
+    from messyerraytracer_tpu_torch.accel.tlas import _world_slots
+    from messyerraytracer_tpu_torch.api.service import RayQuery
+    from messyerraytracer_tpu_torch.core.brute import cast_rays_brute, parity
+    from messyerraytracer_tpu_torch.debug import debug as dbg
+    from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
+        set_transforms)
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cluster_cast_cuda, cluster_cast_plain)
+    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
+        wide_cast_cuda)
+    from messyerraytracer_tpu_torch.scene.scene import _refit_slots
+    from messyerraytracer_tpu_torch.scene.serialize import (
+        load_scene, save_scene)
+
+    tlas, rays, pallas = ctx["tlas"], ctx["rays"], ctx["pallas"]
+    n = rays.count
+    idx = torch.arange(4096, device=device) * (n // 4096)
+    sub = rays.take(idx)
+    part = rays.take(torch.arange(min(SLICE, n), device=device))
+    b1 = b4 = 0
+
+    # ---- the flat twin, built before the moves (it stays on the old
+    # transforms until refit_tlas, the JAX package's two-step contract)
+    _, twin_s = sync_s(tlas._ensure_flat)
+    old_twin = tlas.flat
+    print(f"[{card}] phase 6 flat twin build {twin_s} s "
+          f"({old_twin.num_tris} triangles)", flush=True)
+
+    # ---- (a) 100 instances move through set_transform
+    moves = headline_moves(tlas)
+    check(len(moves) == 100, f"100 moves ({len(moves)})")
+    cpu_ct = to_device(tlas._ctlas, torch.device("cpu"))
+    _, move_s = sync_s(lambda: [tlas.set_transform(k, m)
+                                for k, m in moves.items()])
+    k0 = next(iter(moves))
+    split_a = device_split(lambda: tlas.set_transform(k0, moves[k0]),
+                           ("refit.set_transforms",))
+    ct = tlas._ctlas
+    ref_ct = set_transforms(cpu_ct, [i.transform for i in tlas.instances])
+    for f in ("node_box", "iinv", "ifwd"):
+        check(bit_equal(getattr(ct, f), getattr(ref_ct, f)),
+              f"set_transforms {f}: card == CPU bit for bit")
+    for f in ("aabb_min", "aabb_max"):
+        check(bit_equal(getattr(ct.pair_bvh, f), getattr(ref_ct.pair_bvh, f)),
+              f"pair tree {f}: card == CPU bit for bit")
+    cluster_cast_cuda.launches = 0
+    hi, si, _, inst = tlas.cast_rays_instanced(rays)
+    torch.cuda.synchronize()
+    la = cluster_cast_cuda.launches
+    b1 += la
+    check(la == 1 and int(si.stack_drops) == 0,
+          f"(a) instanced frame: B1 launches {la}, stack_drops "
+          f"{int(si.stack_drops)}")
+    moved_tris = world_triangles(tlas, device)
+    hb, _ = cast_rays_brute(sub, moved_tris, chunk=8192)
+    atol = anchor_atol(old_twin)
+    ok = parity(tlas.cast_rays_instanced(sub)[0], hb, atol=atol)
+    check(ok, "(a) moved instanced parity vs brute")
+    moved_ids = torch.tensor(sorted(moves), dtype=inst.dtype, device=device)
+    hit_moved = int(torch.isin(inst, moved_ids).sum())
+    check(hit_moved > 0, "(a) the frame sees moved instances")
+    err, plain_ms, st = compare_kernel_plain(part, ct, chunk=1 << 20)
+    print(f"[{card}] phase 6a set_transform x100: {move_s * 1e3} ms wall "
+          f"({move_s * 10} ms a call); one call under torch.profiler "
+          f"{json.dumps(split_a)}; tables card == CPU bit for bit; frame: "
+          f"B1 launches {la}, hit_rate {float(hi.hit.float().mean())}, "
+          f"{hit_moved} pixels on moved instances, parity vs brute (4096 "
+          f"rays, t atol {atol}) {ok}; B1 == plain on {part.count} rays, "
+          f"max_abs_err {err}, plain {plain_ms} ms", flush=True)
+
+    # ---- (b) refit_tlas of the 1M twin
+    stale, _ = old_twin.cast_rays(sub)
+    check(parity(stale, cast_rays_brute(sub, old_twin.tris,
+                                        chunk=8192)[0]),
+          "(b) the twin casts its old transforms before refit_tlas")
+    cpu_twin = to_device(old_twin, torch.device("cpu"))
+    cpu_in = [t.cpu() for t in (tlas._obj_slots, tlas._slot_inst)]
+    _, refit_s = sync_s(tlas.refit_tlas)
+    twin = tlas.flat
+    split_b = device_split(tlas.refit_tlas, ("refit.tlas", "refit.scene"))
+    twin = tlas.flat
+    ref = _refit_slots(cpu_twin, *_world_slots(
+        *cpu_in, tlas._transforms_tensor().cpu()))
+    for name, a, b in (
+            [(f"tris.{f}", getattr(twin.tris, f), getattr(ref.tris, f))
+             for f in ("v0", "edge1", "edge2", "normal")]
+            + [(f"bvh.{f}", getattr(twin.bvh, f), getattr(ref.bvh, f))
+               for f in ("aabb_min", "aabb_max")]
+            + [(f"cluster.{f}", getattr(twin.cluster, f),
+                getattr(ref.cluster, f))
+               for f in ("node_box", "tri", "cl_anchor", "cl_aabb")]):
+        check(bit_equal(a, b), f"(b) refit {name}: card == CPU bit for bit")
+    cluster_cast_cuda.launches = 0
+    hf, sf = twin.cast_rays(rays)
+    torch.cuda.synchronize()
+    lb = cluster_cast_cuda.launches
+    b1 += lb
+    check(int(sf.stack_drops) == 0, "(b) twin frame stack_drops == 0")
+    ok_b = parity(twin.cast_rays(sub)[0], hb, atol=atol)
+    check(ok_b, "(b) refit twin parity vs brute")
+    same, grazes = twin_vs_instanced(hf, hi, rays, moved_tris)
+    print(f"[{card}] phase 6b refit_tlas of {twin.num_tris} triangles: "
+          f"{refit_s * 1e3} ms wall against the twin's build {twin_s} s "
+          f"(build / refit {twin_s / refit_s}); one refit under "
+          f"torch.profiler {json.dumps(split_b)}; tables card == CPU bit "
+          f"for bit (tris, BVH boxes, node_box, tri, anchors, cluster "
+          f"boxes); frame: B1 launches {lb}, prims == instanced on "
+          f"{float(same.float().mean())} of rays, off ties only edge "
+          f"grazes {json.dumps(grazes)}, parity vs brute {ok_b}",
+          flush=True)
+
+    # ---- (c) the pallas scene's terrain displaced through RayScene.refit
+    world = ctx["world_tris"].copy()
+    ter = tlas._tri_inst < 16                       # the 16 terrain tiles
+    world[ter, :, 1] += 0.05 * np.sin(0.7 * world[ter, :, 0])
+    disp = pallas.refit(world[:, 0], world[:, 1], world[:, 2])
+    _, pallas_s = sync_s(lambda: pallas.refit(world[:, 0], world[:, 1],
+                                              world[:, 2]))
+    split_c = device_split(lambda: pallas.refit(world[:, 0], world[:, 1],
+                                                world[:, 2]),
+                           ("refit.scene",))
+    wide_cast_cuda.launches = 0
+    cluster_cast_cuda.launches = 0
+    hp, sp = disp.cast_rays(rays)
+    torch.cuda.synchronize()
+    lc = wide_cast_cuda.launches
+    b4 += lc
+    check(lc == 1 and cluster_cast_cuda.launches == 0
+          and int(sp.stack_drops) == 0,
+          f"(c) pallas frame: B4 launches {lc}, stack_drops "
+          f"{int(sp.stack_drops)}")
+    hbp, _ = cast_rays_brute(sub, disp.tris, chunk=8192)
+    ok_c = parity(disp.cast_rays(sub)[0], hbp)
+    check(ok_c, "(c) displaced pallas parity vs brute")
+    errc, plainc, _, _ = compare_wide_plain(part, disp.wide, chunk=1 << 20)
+    print(f"[{card}] phase 6c pallas terrain displaced "
+          f"({int(ter.sum())} triangles): RayScene.refit {pallas_s * 1e3} "
+          f"ms wall; under torch.profiler {json.dumps(split_c)}; frame: B4 "
+          f"launches {lc}, parity vs brute {ok_c}; B4 == plain on "
+          f"{part.count} rays, max_abs_err {errc}, plain {plainc} ms",
+          flush=True)
+
+    # ---- (d) the service: set_transform, refit, 524,288 random rays
+    svc = ctx["svc"]
+    for k, m in moves.items():
+        svc.set_transform(k, m)
+    _, svc_s = sync_s(svc.refit)
+    srays = service_rays(svc.scene, device)
+    cluster_cast_cuda.launches = 0
+    rs = svc.submit(RayQuery(srays))
+    ru = svc.submit(RayQuery(srays, coherent=True))
+    torch.cuda.synchronize()
+    ld = cluster_cast_cuda.launches
+    b1 += ld
+    check(ld == 2, f"(d) service: one B1 launch per submit ({ld})")
+    check(same_hits(rs.hits, ru.hits), "(d) sorted == unsorted bit for bit")
+    check(int(rs.stats.stack_drops) == 0, "(d) stack_drops == 0")
+    sidx = torch.arange(4096, device=device) * (INCOHERENT // 4096)
+    hbs, _ = cast_rays_brute(srays.take(sidx), svc.scene.tris, chunk=8192)
+    satol = anchor_atol(svc.scene)
+    ok_d = parity(take_hits(rs.hits, sidx), hbs, atol=satol)
+    check(ok_d, "(d) service parity vs brute")
+    check(bit_equal(svc.scene.cluster.node_box, twin.cluster.node_box),
+          "(d) the service's refit twin == the TLAS's")
+    print(f"[{card}] phase 6d service set_transform x100 + refit "
+          f"{svc_s * 1e3} ms wall; 512K random rays: B1 launches {ld}, "
+          f"sorted == unsorted bit for bit, parity vs brute (t atol "
+          f"{satol}) {ok_d}, stack_drops 0", flush=True)
+
+    # ---- (e) debug draw modes on a 1920x1080 grid over the refit twin
+    w, h = FRAME
+    cluster_cast_cuda.launches = 0
+    modes = {}
+    for mode in range(7):
+        r, mode_s = sync_s(lambda: dbg.cast_debug_rays(
+            twin, DEBUG_EYE, DEBUG_FWD, w, h, draw_mode=mode, device=device))
+        check(tuple(r.colors.shape) == (w * h, 3)
+              and bool(torch.isfinite(r.colors).all())
+              and bool(((r.colors >= 0) & (r.colors <= 1)).all()),
+              f"(e) mode {mode}: colors in [0, 1]")
+        modes[mode] = {"ms": mode_s * 1e3, "cast_ms": r.elapsed_ms,
+                       "mean": float(r.colors.mean())}
+    torch.cuda.synchronize()
+    le = cluster_cast_cuda.launches
+    b1 += le
+    check(le == 9, f"(e) B1 launches: 7 casts + 2 heatmap counts ({le})")
+    grid = r.rays
+    colors, tt, nodes = dbg.per_ray_cost_heatmap(twin, grid)
+    _, iout, _ = cluster_cast_plain(grid.origin, grid.direction, grid.t_min,
+                                    grid.t_max, twin.cluster, chunk=1 << 20)
+    check(torch.equal(tt, iout[2].float()) and torch.equal(
+        nodes, iout[4].float()), "(e) heatmap counts == plain version's")
+    (segs, depth), wire_s = sync_s(lambda: dbg.bvh_wireframe(twin.bvh))
+    check(segs.shape[0] == 12 * twin.bvh.num_nodes
+          and int(depth.max()) == len(twin.bvh.levels) - 1,
+          "(e) wireframe: 12 edges a node, depths from the levels")
+    print(f"[{card}] phase 6e cast_debug_rays 1920x1080 over the refit "
+          f"twin, by mode {json.dumps(modes)}; B1 launches {le}; heatmap "
+          f"counts == plain version's (tri_tests/ray "
+          f"{float(tt.mean())}, node visits/ray {float(nodes.mean())}); "
+          f"bvh_wireframe {segs.shape[0]} segments in {wire_s * 1e3} ms",
+          flush=True)
+
+    # ---- (f) checkpoint of the refit twin
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/twin.npz"
+        _, save_s = sync_s(lambda: save_scene(path, twin))
+        size = os.path.getsize(path)
+        loaded, load_s = sync_s(lambda: load_scene(path, device=device))
+    cluster_cast_cuda.launches = 0
+    hl, _ = loaded.cast_rays(rays)
+    torch.cuda.synchronize()
+    lf = cluster_cast_cuda.launches
+    b1 += lf
+    check(lf == 1 and same_hits(hl, hf),
+          "(f) the loaded twin's frame == the saved twin's bit for bit")
+    for f in ("v0", "edge1", "edge2", "normal", "prim_id", "layers"):
+        check(bit_equal(getattr(loaded.tris, f), getattr(twin.tris, f)),
+              f"(f) loaded tris.{f} bit for bit")
+    print(f"[{card}] phase 6f checkpoint of the refit twin: save "
+          f"{save_s} s, load {load_s} s, file {size} bytes; loaded frame "
+          f"== saved frame bit for bit (B1 launches {lf})", flush=True)
+    return {"b1": b1, "b4": b4}
+
+
 def main() -> int:
     import torch
 
@@ -1282,8 +1664,13 @@ def main() -> int:
     phase_card_vs_cpu(card, device)
     print(f"[{card}] phase 5 (serving and rendering) {time.time() - t5} s; "
           f"B1 launches {p5['b1']}, B4 launches {p5['b4']}", flush=True)
-    k1["launches"] += p5["b1"]
-    k4["launches"] += p5["b4"]
+    t6 = time.time()
+    p6 = phase_dynamic(card, device, ctx)
+    print(f"[{card}] phase 6 (dynamic scenes, debug, checkpoints) "
+          f"{time.time() - t6} s; B1 launches {p6['b1']}, B4 launches "
+          f"{p6['b4']}", flush=True)
+    k1["launches"] += p5["b1"] + p6["b1"]
+    k4["launches"] += p5["b4"] + p6["b4"]
     print(f"[{card}] chip_smoke total {time.time() - t_start} s",
           flush=True)
     src = "messyerraytracer_tpu_torch/kernels/csrc/"

@@ -11,7 +11,10 @@ documented semantics:
 
 The build runs on the host; ``BVH.host`` keeps the numpy arrays (every
 build-time consumer reads those) and the tensor fields hold copies on the
-chosen device.  ``refit_bvh`` waits for the refit slice (ROADMAP A.2).
+chosen device.  ``refit_bvh`` recomputes the node boxes on that device, a
+level-synchronous bottom-up sweep over ``BVH.levels``; the BVH it returns
+has ``host=None``, since the build's copies no longer hold its boxes, and
+every consumer reads host arrays through ``_bvh_host``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,10 @@ class BVH:
     count:               (M,)   int32 — 0 for internal nodes
     tri_order:           (N,)   int32 — tri slot -> original triangle index
     split_axis:          (M,)   int32 — SAH split axis per internal node
-    host:                dict of the same arrays in numpy
+    levels:              tuple of (M_d,) int32 node-index tensors, one per
+                         tree depth, root level first (the refit's sweep)
+    host:                dict of the same arrays in numpy as the build made
+                         them; None after a refit
     """
 
     aabb_min: torch.Tensor
@@ -47,7 +53,8 @@ class BVH:
     count: torch.Tensor
     tri_order: torch.Tensor
     split_axis: torch.Tensor
-    host: dict
+    levels: tuple
+    host: dict | None
 
     @property
     def num_nodes(self) -> int:
@@ -80,9 +87,27 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     return build_bvh_over_aabbs(tri_min, tri_max, centroid, device=device)
 
 
+def _bvh_host(bvh: BVH, name: str) -> np.ndarray:
+    """A build array of ``bvh`` in numpy: the build's host copy when there
+    is one, else read back from the device (a refit BVH has none)."""
+    if bvh.host is not None:
+        return bvh.host[name]
+    return getattr(bvh, name).cpu().numpy()
+
+
+def _depth_levels(depth: np.ndarray) -> list:
+    """Per-depth node index arrays, root level first: a stable argsort by
+    depth, as the JAX package orders them."""
+    depth = np.asarray(depth)
+    max_depth = int(depth.max()) if depth.size else 0
+    sort_key = np.argsort(depth, kind="stable").astype(np.int32)
+    offsets = np.concatenate(
+        [[0], np.cumsum(np.bincount(depth, minlength=max_depth + 1))])
+    return [sort_key[offsets[d]:offsets[d + 1]] for d in range(max_depth + 1)]
+
+
 def _finalize_bvh(node_min, node_max, left_first, count, depth, axis,
                   order, device=DEFAULT_DEVICE) -> BVH:
-    del depth  # per-level lists serve the refit, which waits (ROADMAP A.2)
     host = {
         "aabb_min": node_min.astype(np.float32),
         "aabb_max": node_max.astype(np.float32),
@@ -95,6 +120,8 @@ def _finalize_bvh(node_min, node_max, left_first, count, depth, axis,
     return BVH(aabb_min=put("aabb_min"), aabb_max=put("aabb_max"),
                left_first=put("left_first"), count=put("count"),
                tri_order=put("tri_order"), split_axis=put("split_axis"),
+               levels=tuple(torch.as_tensor(lv, device=device)
+                            for lv in _depth_levels(depth)),
                host=host)
 
 
@@ -245,7 +272,44 @@ def build_bvh_over_aabbs(tri_min, tri_max, centroid,
     )
 
 
-def refit_bvh(bvh: BVH, tri_min, tri_max) -> BVH:
-    """Device-side refit to moved vertices: not ported yet."""
-    raise NotImplementedError(
-        "refit_bvh is not ported yet (ROADMAP A.2: refit_bvh on device)")
+def sah_cost(bvh: BVH) -> float:
+    """Total SAH cost of the tree (diagnostic; lower = better culling)."""
+    ext = bvh.aabb_max - bvh.aabb_min
+    area = 2.0 * (torch.roll(ext, 1, dims=-1) * ext).sum(dim=-1)
+    w = torch.where(bvh.count > 0, bvh.count.to(torch.float32),
+                    torch.ones_like(area))
+    return float((area * w).sum() / area[0].clamp_min(1e-30))
+
+
+def refit_bvh(bvh: BVH, tri_min: torch.Tensor,
+              tri_max: torch.Tensor) -> BVH:
+    """Recompute the node boxes for moved primitives, on the device of the
+    BVH's tensors: each leaf's box from its slot window of MAX_LEAF_SIZE,
+    then the internal nodes level by level from the deepest up, each a
+    few gathers and a ``torch.minimum`` / ``maximum``.  Min and max are
+    exact, so the boxes are the same on any device.
+
+    ``tri_min`` / ``tri_max`` are per-SLOT primitive boxes (already in
+    ``tri_order``).  The topology is unchanged; a new ``BVH`` is returned
+    (``host=None``) and no tensor of the old one is written."""
+    m, dev = bvh.num_nodes, bvh.aabb_min.device
+    offs = torch.arange(MAX_LEAF_SIZE, dtype=torch.int32, device=dev)
+    window = (bvh.left_first[:, None] + offs).clamp(0, bvh.num_tris - 1)
+    valid = (offs < bvh.count[:, None])[..., None]            # (M, k, 1)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    w = window.long()
+    leaf_min = torch.where(valid, tri_min[w], inf).amin(dim=1)
+    leaf_max = torch.where(valid, tri_max[w], -inf).amax(dim=1)
+    is_leaf = (bvh.count > 0)[:, None]
+    amin = torch.where(is_leaf, leaf_min, inf)
+    amax = torch.where(is_leaf, leaf_max, -inf)
+    for li in reversed(bvh.levels):
+        li = li.long()
+        internal = (bvh.count[li] == 0)[:, None]
+        lc = (li + 1).clamp_max(m - 1)
+        rc = bvh.left_first[li].long().clamp(0, m - 1)
+        amin[li] = torch.where(internal, torch.minimum(amin[lc], amin[rc]),
+                               amin[li])
+        amax[li] = torch.where(internal, torch.maximum(amax[lc], amax[rc]),
+                               amax[li])
+    return dataclasses.replace(bvh, aabb_min=amin, aabb_max=amax, host=None)

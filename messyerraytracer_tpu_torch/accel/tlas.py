@@ -10,9 +10,12 @@ representations of one instanced scene, as in the reference:
     a plain ``RayScene`` over every instance's world triangles.
 
 ``instanced_scene`` gives renderers and path tracers a scene-like view of
-the instanced tables.  Transform updates (``set_transform``,
-``refit_tlas``) wait for ROADMAP A.5; the two-level and frontier casts
-for A.10.
+the instanced tables.  Transform updates keep the JAX package's two steps:
+``set_transform`` refits the instanced tables at once, and ``refit_tlas``
+brings an already-built flat twin up to the current transforms (until
+then it casts the old ones, as in JAX; a twin first built after the
+update reads the new ones).  Both run on the tables' device.  The
+two-level and frontier casts wait for ROADMAP A.10.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from ..accel.bvh import _bvh_host
 from ..core.types import ALL_LAYERS, DEFAULT_DEVICE, Hits, Rays
-from ..scene.scene import RayScene, build_scene
+from ..scene.scene import RayScene, _refit_slots, build_scene
 
 
 def _to_mat4(transform) -> np.ndarray:
@@ -52,8 +57,8 @@ class MeshBLAS:
 
     def object_bounds(self):
         """Object-space AABB from the BLAS root."""
-        host = self.scene.bvh.host
-        return host["aabb_min"][0], host["aabb_max"][0]
+        bvh = self.scene.bvh
+        return _bvh_host(bvh, "aabb_min")[0], _bvh_host(bvh, "aabb_max")[0]
 
 
 @dataclasses.dataclass
@@ -120,6 +125,19 @@ class InstancedScene:
         return occluded
 
 
+def _world_slots(obj_slots, slot_inst, transforms):
+    """World vertices (v0, v1, v2), each (F, 3), of slot-ordered
+    object-space triangles (F, 3, 3) under their instances' (I, 3, 4)
+    transforms: ((r0 x + r1 y) + r2 z) + t per row, one float32
+    operation at a time (the JAX package's refit expression)."""
+    r = transforms[slot_inst.long()]                       # (F, 3, 4)
+    world = (r[:, None, :, 0] * obj_slots[:, :, None, 0]
+             + r[:, None, :, 1] * obj_slots[:, :, None, 1]
+             + r[:, None, :, 2] * obj_slots[:, :, None, 2]
+             + r[:, None, :, 3])                           # (F, 3v, 3)
+    return tuple(world[:, k].contiguous() for k in range(3))
+
+
 class SceneTLAS:
     """Top-level structure over BLAS instances: ``add_mesh`` ->
     ``add_instance`` -> ``build_tlas`` / ``build_instanced``."""
@@ -134,6 +152,9 @@ class SceneTLAS:
         self._obj_tris: np.ndarray | None = None   # (F, 3, 3) object space
         self._flat_layers: np.ndarray | None = None
         self._ctlas = None                         # ClusterTLAS cache
+        # the flat twin's refit inputs on the device (set with the twin)
+        self._slot_inst: torch.Tensor | None = None    # (F,) slot order
+        self._obj_slots: torch.Tensor | None = None    # (F, 3, 3)
 
     # ---- build -------------------------------------------------------
     def add_mesh(self, tri_array, layers=None) -> int:
@@ -174,6 +195,7 @@ class SceneTLAS:
         self._tri_inst = np.concatenate(inst_id)
         self._flat_layers = np.concatenate(layers)
         self._flat = None
+        self._slot_inst = self._obj_slots = None
 
     @property
     def flat(self) -> RayScene | None:
@@ -193,6 +215,16 @@ class SceneTLAS:
             layers=self._flat_layers, backend=self.backend,
             device=self.device,
         )
+        perm = _bvh_host(self._flat.bvh, "tri_order")
+        self._slot_inst = torch.as_tensor(self._tri_inst[perm],
+                                          device=self.device)
+        self._obj_slots = torch.as_tensor(self._obj_tris[perm],
+                                          device=self.device)
+
+    def _transforms_tensor(self) -> torch.Tensor:
+        """(I, 3, 4) current instance transforms on the device."""
+        return torch.as_tensor(np.stack([i.transform for i in self.instances]),
+                               device=self.device)
 
     def _world_tris_np(self) -> np.ndarray:
         tf = np.stack([i.transform for i in self.instances])  # (I,3,4)
@@ -262,16 +294,32 @@ class SceneTLAS:
             bounds=(torch.as_tensor(lo, device=self.device),
                     torch.as_tensor(hi, device=self.device)))
 
-    # ---- not ported yet ----------------------------------------------
+    # ---- dynamic updates ---------------------------------------------
     def set_transform(self, instance_id: int, transform) -> None:
-        raise NotImplementedError(
-            "SceneTLAS.set_transform is not ported yet (ROADMAP A.5: "
-            "set_transforms and refit_tlas)")
+        """Move one instance.  The instanced tables, if built, are refit
+        at once on their device (``set_transforms``); an already-built
+        flat twin keeps the old transforms until ``refit_tlas``."""
+        inst = self.instances[instance_id]
+        self.instances[instance_id] = BLASInstance.create(
+            inst.blas_id, _to_mat4(transform), inst.layers)
+        if self._ctlas is not None:
+            from ..kernels.cluster_tlas import set_transforms
+
+            self._ctlas = set_transforms(
+                self._ctlas, [i.transform for i in self.instances])
 
     def refit_tlas(self) -> None:
-        raise NotImplementedError(
-            "SceneTLAS.refit_tlas is not ported yet (ROADMAP A.5)")
+        """Bring the flat twin to the current transforms on its device:
+        world triangles from the object-space slots (explicit float32
+        multiply-adds), then the scene refit (triangles re-derived, BVH
+        refit, tables refreshed).  Topology unchanged."""
+        self._ensure_flat()
+        with record_function("refit.tlas"):
+            self._flat = _refit_slots(
+                self._flat, *_world_slots(self._obj_slots, self._slot_inst,
+                                          self._transforms_tensor()))
 
+    # ---- not ported yet ----------------------------------------------
     def build_two_level(self):
         raise NotImplementedError(
             "the frontier two-level tables are not ported yet (ROADMAP "

@@ -118,10 +118,13 @@ class RayTracerService:
                                          backend=self._resolve_backend())
 
     def set_transform(self, instance_id: int, transform) -> None:
+        """Move an instance; casts see it after ``refit()``."""
         self._tlas.set_transform(instance_id, transform)
 
     def refit(self) -> None:
-        """Refit after transform updates (waits for ROADMAP A.5)."""
+        """Refit the flat twin to the transforms set since the last build
+        or refit, on the device (topology unchanged), then dispatch over
+        the refit twin."""
         self._tlas.refit_tlas()
         self._dispatcher = RayDispatcher(self._tlas.flat,
                                          backend=self._resolve_backend())

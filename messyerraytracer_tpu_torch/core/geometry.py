@@ -5,6 +5,11 @@ version of the cluster traversal.  Everything broadcasts: rays and
 triangles may carry leading batch dimensions as long as they are mutually
 broadcastable.
 
+``triangle_fields`` re-derives triangle edges and normals on a device
+(the refits): every float32 expression is written out, one operation at a
+time, in the order of the numpy build (``types.triangle_fields_np``), so
+the card, the CPU and the build agree bit for bit.
+
 Semantics (the JAX package's core/geometry.py):
   * Moller-Trumbore: reject |det| < 1e-8, u in [0,1], v >= 0, u+v <= 1,
     t in [t_min, t_max].
@@ -28,6 +33,22 @@ def _cross(a, b):
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
     return torch.stack([ay * bz - az * by, az * bx - ax * bz,
                         ax * by - ay * bx], dim=-1)
+
+
+def triangle_fields(v0, v1, v2):
+    """(v0, e1, e2, unit normal) of (T, 3) float32 vertex tensors, on
+    their device, bit-equal to ``types.triangle_fields_np``: the cross
+    product as separate multiplies and subtractions, the squared norm
+    summed as ((x² + y²) + z²), its square root taken in float64 and
+    rounded to float32 (correctly rounded on both devices, which
+    PyTorch's float32 CPU sqrt is not), and IEEE division."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    nrm = _cross(e1, e2)
+    sq = nrm * nrm
+    nl = torch.sqrt(((sq[:, 0] + sq[:, 1]) + sq[:, 2]).double()).float()
+    nl = torch.where(nl > 0.0, nl, torch.ones_like(nl))[:, None]
+    return v0, e1, e2, nrm / nl
 
 
 def moller_trumbore(origin, direction, t_min, t_max, v0, edge1, edge2):

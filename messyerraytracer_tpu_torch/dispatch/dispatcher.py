@@ -113,21 +113,17 @@ class RayDispatcher:
         return dataclasses.replace(self.scene, backend=self.backend)
 
     def _scene_bounds(self, scene):
-        """(lo, hi) of the scene's BVH root on the scene's device, read
-        once per BVH from its host copy."""
+        """(lo, hi) of the scene's BVH root, the device rows of its boxes
+        (current after a refit), once per BVH."""
         def make():
-            host = scene.bvh.host
-            dev = scene.bvh.aabb_min.device
-            return (torch.as_tensor(host["aabb_min"][0], device=dev),
-                    torch.as_tensor(host["aabb_max"][0], device=dev))
+            return scene.bvh.aabb_min[0], scene.bvh.aabb_max[0]
         return self._bounds_cache.get(scene.bvh, make)
 
     def _scene_diag(self, scene) -> float:
         """Scene-AABB diagonal, once per BVH."""
         def make():
-            host = scene.bvh.host
-            return float(np.linalg.norm(host["aabb_max"][0]
-                                        - host["aabb_min"][0]))
+            lo, hi = (b.cpu().numpy() for b in self._scene_bounds(scene))
+            return float(np.linalg.norm(hi - lo))
         return self._diag_cache.get(scene.bvh, make)
 
     def _sorted(self, rays: Rays):

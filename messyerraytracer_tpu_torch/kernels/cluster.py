@@ -33,8 +33,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..accel.bvh import _bvh_host
+from ..core.geometry import _cross
 from ..core.types import DEFAULT_DEVICE
-from .wide import ABSENT, NODE8_STRIDE, WIDE8_CAP, _upper_node_tables
+from .wide import (
+    ABSENT,
+    NODE8_STRIDE,
+    WIDE8_CAP,
+    _child_boxes,
+    _upper_node_tables,
+)
 
 TCAP_DEFAULT = 64       # triangles per cluster
 LOCAL_BITS = 13         # instanced leaf payload: gid = inst << 13 | local
@@ -99,6 +107,11 @@ def cluster_cut(lf: np.ndarray, cnt: np.ndarray, tcap: int):
 # the port's tables
 # ---------------------------------------------------------------------------
 
+def _refresh_table():
+    # keyword-only, so subclasses may add fields without defaults
+    return dataclasses.field(default=None, kw_only=True)
+
+
 @dataclasses.dataclass
 class ClusterScene:
     """Tables of the cluster cast, on one device.
@@ -118,6 +131,14 @@ class ClusterScene:
     dummy_enc   2 * NW — the JAX package's never-hit dummy node code,
                 kept as the scene's identity for conversions
     stack_need  build-time worst-case traversal stack depth
+
+    The refresh after a refit (``refresh_cluster_scene``) reads four more
+    tables, which tables converted from the JAX package lack (None):
+    child_node (NW, 8) i32 — the binary BVH node each child slot holds,
+                -1 if absent
+    croots      (C,) i32 — each cluster's root node in the binary BVH
+    slot_map    (C, T) i32 — the triangle slot of each row (0 on pad rows)
+    cvalid      (C, T) bool — the row holds a triangle
     """
 
     node_box: torch.Tensor
@@ -133,6 +154,10 @@ class ClusterScene:
     dummy_enc: int
     num_clusters: int
     stack_need: int
+    child_node: torch.Tensor | None = _refresh_table()
+    croots: torch.Tensor | None = _refresh_table()
+    slot_map: torch.Tensor | None = _refresh_table()
+    cvalid: torch.Tensor | None = _refresh_table()
 
 
 def _put(tables: dict, device) -> dict:
@@ -147,10 +172,11 @@ def _kstack_for(stack_need: int) -> int:
     return max(KSTACK, int(stack_need) + 2)
 
 
-def _cluster_tables_np(amin, amax, lf, cnt, _np, tcap: int):
+def _cluster_tables_np(amin, amax, lf, cnt, _np, tcap: int, collapsed=None):
     """All tables of one cluster scene in numpy.
 
-    ``_np`` = (v0, e1, e2, normal, prim_id, layers) in BVH slot order.
+    ``_np`` = (v0, e1, e2, normal, prim_id, layers) in BVH slot order;
+    ``collapsed`` as for ``_upper_node_tables``.
     Returns (tables, meta): numpy arrays keyed like ``ClusterScene``'s
     tensor fields, and its metadata."""
     pv0, pe1, pe2 = (np.asarray(a, np.float32) for a in _np[:3])
@@ -171,8 +197,9 @@ def _cluster_tables_np(amin, amax, lf, cnt, _np, tcap: int):
     is_cluster[roots] = True
     cluster_of = np.full(m, -1, np.int32)
     cluster_of[roots] = np.arange(c, dtype=np.int32)
-    node_box, node_child, node_axis, nw, stack_need = _upper_node_tables(
-        amin, amax, lf, cnt, is_cluster, cluster_of)
+    node_box, node_child, node_axis, nw, stack_need, kids = \
+        _upper_node_tables(amin, amax, lf, cnt, is_cluster, cluster_of,
+                           collapsed)
 
     # padded slot tables: slot = c*tcap + k (the JAX _host_refresh math)
     ks = np.arange(tcap, dtype=np.int64)[None, :]
@@ -190,6 +217,10 @@ def _cluster_tables_np(amin, amax, lf, cnt, _np, tcap: int):
          -np.sum(v0c * n, axis=-1, keepdims=True)], axis=-1,
     ).astype(np.float32)                                      # (C, T, 16)
     tables = {
+        "child_node": kids,
+        "croots": roots.astype(np.int32),
+        "slot_map": np.where(valid, slots, 0).astype(np.int32),
+        "cvalid": valid,
         "node_box": node_box,
         "node_child": node_child,
         "node_axis": node_axis,
@@ -207,14 +238,15 @@ def _cluster_tables_np(amin, amax, lf, cnt, _np, tcap: int):
 
 
 def build_cluster_scene(bvh, tris, _np=None, tcap: int = TCAP_DEFAULT,
-                        device=None) -> ClusterScene:
+                        device=None, collapsed=None) -> ClusterScene:
     """Build the cluster tables from a binary BVH + slot-ordered triangles.
 
     Every table is arranged in numpy on the host (the JAX package's
     ``host_arrange`` path, at every size) and put on ``device`` (default:
     the device of ``tris``, else ``DEFAULT_DEVICE``).  ``_np`` optionally gives host
-    copies (v0, e1, e2, normal, prim_id, layers) in slot order."""
-    host = bvh.host
+    copies (v0, e1, e2, normal, prim_id, layers) in slot order;
+    ``collapsed`` keeps an earlier grouping of the upper tree
+    (``_upper_node_tables``)."""
     if _np is None:
         _np = tuple(x.cpu().numpy() for x in (
             tris.v0, tris.edge1, tris.edge2, tris.normal, tris.prim_id,
@@ -222,9 +254,51 @@ def build_cluster_scene(bvh, tris, _np=None, tcap: int = TCAP_DEFAULT,
     if device is None:
         device = tris.v0.device if tris is not None else DEFAULT_DEVICE
     tables, meta = _cluster_tables_np(
-        host["aabb_min"], host["aabb_max"], host["left_first"],
-        host["count"], _np, tcap)
+        *(_bvh_host(bvh, k) for k in ("aabb_min", "aabb_max", "left_first",
+                                      "count")), _np, tcap, collapsed)
     return ClusterScene(**_put(tables, device), **meta)
+
+
+def _anchored_fields(v0, e1, e2, anchors):
+    """(C, T, 16) per-triangle fields of the anchored Plucker test from
+    (C, T, 3) tensors and (C, 3) anchors: -n, v0'xe2, e2, -(v0'xe1), -e1,
+    -v0'.n with v0' = v0 - anchor and n = e1 x e2.  Each float32 operation
+    is one op, in the order of ``_cluster_tables_np``'s numpy, so the
+    result is bit-equal to the build's on any device."""
+    v0c = v0 - anchors[:, None, :]
+    n = _cross(e1, e2)
+    p = v0c * n
+    # numpy's sum starts from +0: ((0 + x) + y) + z (a sum of -0s is +0)
+    dot = ((0.0 + p[..., 0]) + p[..., 1]) + p[..., 2]
+    return torch.cat([-n, _cross(v0c, e2), e2, -_cross(v0c, e1), -e1,
+                      -dot[..., None]], dim=-1)
+
+
+def refresh_cluster_scene(cs: ClusterScene, bvh, tris) -> ClusterScene:
+    """The cluster tables after a refit, on their device: child boxes
+    regathered from the refit ``bvh``, each cluster's anchor (its root
+    box's center) and box, and the 16 anchored fields of its triangles
+    from the re-derived slot-ordered ``tris``.  Prim ids, layers, counts,
+    codes, axes and the stack bound keep (the topology is unchanged).
+    Returns a new ``ClusterScene``; the old one's tensors are not
+    written."""
+    if cs.croots is None:
+        raise ValueError("refresh_cluster_scene: these tables were "
+                         "converted from the JAX package and carry no "
+                         "refresh tables; build them with the port's "
+                         "builders")
+    roots = cs.croots.long()
+    cmin, cmax = bvh.aabb_min[roots], bvh.aabb_max[roots]
+    anchors = 0.5 * (cmin + cmax)
+    slots = cs.slot_map.long()
+    vm = cs.cvalid[..., None]
+    zero = torch.zeros((), dtype=torch.float32, device=slots.device)
+    v0, e1, e2 = (torch.where(vm, x[slots], zero)
+                  for x in (tris.v0, tris.edge1, tris.edge2))
+    return dataclasses.replace(
+        cs, node_box=_child_boxes(cs.child_node, bvh),
+        tri=_anchored_fields(v0, e1, e2, anchors), cl_anchor=anchors,
+        cl_aabb=torch.cat([cmin, cmax], dim=1))
 
 
 # ---------------------------------------------------------------------------

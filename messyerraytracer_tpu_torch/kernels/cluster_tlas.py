@@ -14,8 +14,9 @@ PyTorch counterpart of ``messyerraytracer_tpu/kernels/cluster_tlas.py``
     space at each cluster visit (no renormalization, so t stays in world
     units); the hit normal goes back through the inverse-transpose.
 
-``set_transforms`` (device refit of the pair tree) waits for the refit
-slice (ROADMAP A.5).
+``set_transforms`` moves instances on the device: the pair boxes are
+pushed through the new transforms, the pair tree is refit and the node
+boxes regathered; the object-space cluster tables stay as they are.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from ..accel.bvh import build_bvh, build_bvh_over_aabbs
+from ..accel.bvh import BVH, build_bvh, build_bvh_over_aabbs, refit_bvh
 from ..core.types import ALL_LAYERS, DEFAULT_DEVICE
 from .cluster import (
     LOCAL_BITS,
@@ -37,7 +39,7 @@ from .cluster import (
     _nodes_from_jax,
     _put,
 )
-from .wide import _upper_node_tables
+from .wide import _child_boxes, _upper_node_tables
 
 MAX_INSTANCES = 1 << (23 - LOCAL_BITS)   # 1024
 
@@ -52,9 +54,14 @@ class ClusterTLAS(ClusterScene):
     iprim      (Ni,) i32 — global prim-id base (the flattened numbering)
     iinv       (Ni, 12) f32 — world->object rows [R^-1 | -R^-1 t]
     ifwd       (Ni, 9) f32 — normal matrix (R^-1)^T, row-major
-    pair_bounds  ((3,), (3,)) f32 numpy — the world AABB of the pair
-                 tree's root, from its host copy (None for tables
-                 converted from the JAX package)
+
+    What ``set_transforms`` reads (None for tables converted from the JAX
+    package, which have no pair tree):
+    pair_bvh   BVH over the (instance, cluster) pairs' world boxes, on
+               the tables' device; ``child_node`` maps child slots to its
+               nodes
+    pair_obj_min / pair_obj_max (P, 3) f32 — each pair's object-space
+               cluster box;  pair_inst (P,) i32 — its instance
     """
 
     inst_cbase: torch.Tensor
@@ -63,7 +70,18 @@ class ClusterTLAS(ClusterScene):
     ifwd: torch.Tensor
     n_inst: int
     num_pairs: int
-    pair_bounds: tuple | None = None
+    pair_bvh: BVH | None = None
+    pair_obj_min: torch.Tensor | None = None
+    pair_obj_max: torch.Tensor | None = None
+    pair_inst: torch.Tensor | None = None
+
+    @property
+    def pair_bounds(self) -> tuple | None:
+        """(lo, hi) world AABB of the pair tree's root, on the tables'
+        device (None without a pair tree)."""
+        if self.pair_bvh is None:
+            return None
+        return self.pair_bvh.aabb_min[0], self.pair_bvh.aabb_max[0]
 
 
 def _to_mat34(t) -> np.ndarray:
@@ -124,6 +142,33 @@ def _pair_world_aabbs_np(obj_min, obj_max, fwd_rows):
     return wmin.astype(np.float32), wmax.astype(np.float32)
 
 
+def _pair_world_aabbs(obj_min, obj_max, m):
+    """``_pair_world_aabbs_np`` in torch, on the device of its (P, 3)
+    boxes and (P, 12) forward rows: the same float32 operations in the
+    same order, so the same bounds."""
+    wmin = torch.full_like(obj_min, float("inf"))
+    wmax = torch.full_like(obj_min, -float("inf"))
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                c = (obj_max[:, 0] if cx else obj_min[:, 0],
+                     obj_max[:, 1] if cy else obj_min[:, 1],
+                     obj_max[:, 2] if cz else obj_min[:, 2])
+                w = torch.stack(
+                    [m[:, 4 * r] * c[0] + m[:, 4 * r + 1] * c[1]
+                     + m[:, 4 * r + 2] * c[2] + m[:, 4 * r + 3]
+                     for r in range(3)], dim=-1)
+                wmin = torch.minimum(wmin, w)
+                wmax = torch.maximum(wmax, w)
+    return wmin, wmax
+
+
+def _fwd_rows(transforms: list) -> np.ndarray:
+    """(Ni, 12) float32 forward [R | t] rows of the instance transforms."""
+    return np.stack([_to_mat34(t).astype(np.float32).reshape(-1)
+                     for t in transforms])
+
+
 def build_cluster_tlas(mesh_tris: list, instances: list,
                        tcap: int = TCAP_DEFAULT,
                        mesh_layers: list | None = None,
@@ -181,8 +226,7 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
         cbases.append(total_c)
         total_c += meta["num_clusters"]
 
-    fwd_rows = np.stack([_to_mat34(t).astype(np.float32).reshape(-1)
-                         for t in transforms])
+    fwd_rows = _fwd_rows(transforms)
     iinv, ifwd = _inst_tables(transforms)
     # flattened-scene global prim-id base per instance
     iprim = np.cumsum([0] + [len(mesh_tris[m]) for m in mesh_ids[:-1]]
@@ -201,14 +245,16 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
 
     wmin, wmax = _pair_world_aabbs_np(pobj[:, 0:3], pobj[:, 3:6],
                                       fwd_rows[pinst])
-    host = build_bvh_over_aabbs(wmin, wmax, (wmin + wmax) * 0.5,
-                                max_leaf_size=1, device=device).host
+    pair_bvh = build_bvh_over_aabbs(wmin, wmax, (wmin + wmax) * 0.5,
+                                    max_leaf_size=1, device=device)
+    host = pair_bvh.host
     lf, cnt = host["left_first"], host["count"]
     is_leaf = cnt > 0
     gid_of_node = np.zeros(len(cnt), np.int32)
     gid_of_node[is_leaf] = pgid[host["tri_order"][lf[is_leaf]]]
-    node_box, node_child, node_axis, nw, stack_need = _upper_node_tables(
-        host["aabb_min"], host["aabb_max"], lf, cnt, is_leaf, gid_of_node)
+    node_box, node_child, node_axis, nw, stack_need, kids = \
+        _upper_node_tables(host["aabb_min"], host["aabb_max"], lf, cnt,
+                           is_leaf, gid_of_node)
 
     tables = {k: np.concatenate([g[k] for g in groups])
               for k in ("tri", "tri_prim", "tri_layers", "cl_anchor",
@@ -216,21 +262,44 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
     tables.update(
         node_box=node_box, node_child=node_child, node_axis=node_axis,
         inst_cbase=np.asarray([cbases[g] for g in group_inst], np.int32),
-        iprim=iprim, iinv=iinv[:, :12], ifwd=ifwd)
+        iprim=iprim, iinv=iinv[:, :12], ifwd=ifwd, child_node=kids,
+        pair_obj_min=pobj[:, 0:3], pair_obj_max=pobj[:, 3:6],
+        pair_inst=pinst)
     return ClusterTLAS(**_put(tables, device), tcap=tcap,
                        dummy_enc=2 * nw, num_clusters=total_c,
                        stack_need=stack_need, n_inst=ni,
-                       num_pairs=len(pgid),
-                       pair_bounds=(host["aabb_min"][0].copy(),
-                                    host["aabb_max"][0].copy()))
+                       num_pairs=len(pgid), pair_bvh=pair_bvh)
 
 
 def set_transforms(ct: ClusterTLAS, transforms: list) -> ClusterTLAS:
-    """Device refit of the pair tree after transform updates: not ported
-    yet."""
-    raise NotImplementedError(
-        "set_transforms is not ported yet (ROADMAP A.5: set_transforms and "
-        "refit_tlas)")
+    """Move the instances to ``transforms`` (one per instance, (3,4) /
+    (4,4) / (3,3)), on the device of the tables: the inverse and normal
+    matrices are recomputed on the host (float64 inverse, as at build),
+    each pair's object box goes through its instance's new forward rows
+    (8 corners), the pair BVH is refit and the node boxes regathered, so
+    ``pair_bounds`` follows too.  The object-space cluster tables stay as
+    they are.  Returns a new ``ClusterTLAS``; the old one's tensors are
+    not written."""
+    if ct.pair_bvh is None:
+        raise ValueError("set_transforms: these tables were converted from "
+                         "the JAX package and carry no pair tree; build "
+                         "them with build_cluster_tlas")
+    if len(transforms) != ct.n_inst:
+        raise ValueError(f"set_transforms: {len(transforms)} transforms "
+                         f"for {ct.n_inst} instances")
+    dev = ct.node_box.device
+    iinv, ifwd = _inst_tables(transforms)
+    with record_function("refit.set_transforms"):
+        fwd = torch.as_tensor(_fwd_rows(transforms), device=dev)
+        wmin, wmax = _pair_world_aabbs(ct.pair_obj_min, ct.pair_obj_max,
+                                       fwd[ct.pair_inst.long()])
+        perm = ct.pair_bvh.tri_order.long()   # refit takes per-slot boxes
+        bvh = refit_bvh(ct.pair_bvh, wmin[perm], wmax[perm])
+        return dataclasses.replace(
+            ct, node_box=_child_boxes(ct.child_node, bvh), pair_bvh=bvh,
+            iinv=torch.as_tensor(np.ascontiguousarray(iinv[:, :12]),
+                                 device=dev),
+            ifwd=torch.as_tensor(ifwd, device=dev))
 
 
 def cluster_tlas_from_jax(nodes, ablocks, islab, iprim, iinv, ifwd, *,

@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..accel.bvh import _bvh_host
 from ..core.types import DEFAULT_DEVICE
 
 NODE_STRIDE = 16      # JAX lanes per binary node (8 per 128-lane row)
@@ -136,14 +137,20 @@ def _wide_stack_need(node_child) -> int:
     return need
 
 
-def _upper_node_tables(amin, amax, lf, cnt, is_leaf, leaf_of):
+def _upper_node_tables(amin, amax, lf, cnt, is_leaf, leaf_of,
+                       collapsed=None):
     """8-wide node tables over a binary DFS tree whose leaves are the
     nodes flagged ``is_leaf`` (binary leaves, or cluster roots); a leaf's
     payload is ``leaf_of``.  Returns (node_box, node_child, node_axis, nw,
-    stack_need)."""
+    stack_need, child_node): ``child_node`` (nw, 8) is the binary node
+    each child slot holds, -1 for an absent slot (the refits regather
+    ``node_box`` through it).  ``collapsed`` = (child_node, node_axis) of
+    an earlier collapse of the same tree keeps its grouping (a checkpoint
+    of a refit scene); None collapses over the boxes."""
     m = amin.shape[0]
     ucnt = np.where(is_leaf, 1, 0).astype(np.int32)
-    children, waxes = _collapse8(amin, amax, lf, ucnt)
+    children, waxes = (_collapse8(amin, amax, lf, ucnt) if collapsed is None
+                       else collapsed)
     children = np.asarray(children, np.int32)
     nw = children.shape[0]
 
@@ -163,7 +170,17 @@ def _upper_node_tables(amin, amax, lf, cnt, is_leaf, leaf_of):
         [amin[ck], amax[ck]], axis=-1).astype(np.float32)   # (nw, 8, 6)
     node_box[~present] = np.nan
     return (node_box, node_child, np.asarray(waxes, np.int32), nw,
-            _wide_stack_need(node_child))
+            _wide_stack_need(node_child), children)
+
+
+def _child_boxes(child_node: torch.Tensor, bvh) -> torch.Tensor:
+    """(W, K, 6) child boxes [min.xyz, max.xyz] gathered from ``bvh``'s
+    node boxes through ``child_node``, NaN where a slot is absent: the
+    build's ``node_box``, on the device of the BVH."""
+    ck = child_node.clamp_min(0).long()
+    box = torch.cat([bvh.aabb_min[ck], bvh.aabb_max[ck]], dim=-1)
+    return torch.where((child_node >= 0)[..., None], box,
+                       torch.full_like(box, float("nan")))
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +196,10 @@ class WideScene:
     never-hit dummy node code and all-zero dummy leaf index, kept as the
     scene's identity for conversions; ``stream_leaves`` / ``stream_nodes``
     are the JAX package's VMEM-fit flags, metadata only here.
-    ``stack_need`` is the build-time worst-case traversal stack depth."""
+    ``stack_need`` is the build-time worst-case traversal stack depth.
+    ``child_node`` (W, K) i32 is the binary BVH node each child slot came
+    from, -1 if absent (the refresh's gather table; None for tables
+    converted from the JAX package)."""
 
     node_box: torch.Tensor
     node_child: torch.Tensor
@@ -196,6 +216,7 @@ class WideScene:
     stack_need: int
     stream_leaves: bool = False
     stream_nodes: bool = False
+    child_node: torch.Tensor | None = None
     _q: tuple | None = dataclasses.field(default=None, repr=False)
 
     @property
@@ -282,7 +303,8 @@ def _leaf_tables(lf, cnt, v0, e1, e2, nrm, pid, lay):
 
 
 def _host_inputs(bvh, tris, _np):
-    host = bvh.host
+    host = {k: _bvh_host(bvh, k) for k in (
+        "aabb_min", "aabb_max", "left_first", "count", "split_axis")}
     if _np is None:
         _np = tuple(x.cpu().numpy() for x in (
             tris.v0, tris.edge1, tris.edge2, tris.normal, tris.prim_id,
@@ -318,6 +340,7 @@ def build_wide_scene(bvh, tris, _np=None, stream_leaves: bool = False,
         node_box[0, 0] = np.concatenate([amin[0], amax[0]])
         node_child = np.array([[1, ABSENT]], np.int32)
         node_axis = np.zeros(1, np.int32)
+        kids = np.array([[0, -1]], np.int32)
     else:
         kids = np.stack([internal + 1, lf[internal]], axis=1)   # (W, 2)
         node_box = np.concatenate([amin[kids], amax[kids]],
@@ -326,7 +349,7 @@ def build_wide_scene(bvh, tris, _np=None, stream_leaves: bool = False,
         node_child = (2 * ptr + is_leaf[kids]).astype(np.int32)
         node_axis = host["split_axis"][internal].astype(np.int32)
     tables = {"node_box": node_box, "node_child": node_child,
-              "node_axis": node_axis,
+              "node_axis": node_axis, "child_node": kids.astype(np.int32),
               **_leaf_tables(lf, cnt, v0, e1, e2, nrm, pid, lay)}
     if device is None:
         device = tris.v0.device if tris is not None else DEFAULT_DEVICE
@@ -337,17 +360,20 @@ def build_wide_scene(bvh, tris, _np=None, stream_leaves: bool = False,
 
 
 def build_wide8_scene(bvh, tris, _np=None, stream_leaves: bool = False,
-                      stream_nodes: bool = False, device=None) -> WideScene:
-    """The 8-wide layout: ``_collapse8`` over the binary BVH, leaves as in
+                      stream_nodes: bool = False, device=None,
+                      collapsed=None) -> WideScene:
+    """The 8-wide layout: ``_collapse8`` over the binary BVH (or the given
+    ``collapsed`` grouping, see ``_upper_node_tables``), leaves as in
     ``build_wide_scene`` (the JAX ``build_wide8_scene`` contract)."""
     host, (v0, e1, e2, nrm, pid, lay) = _host_inputs(bvh, tris, _np)
     lf, cnt = host["left_first"], host["count"]
     is_leaf = cnt > 0
     leaf_of = (np.cumsum(is_leaf) - 1).astype(np.int32)
-    node_box, node_child, node_axis, nw, _ = _upper_node_tables(
-        host["aabb_min"], host["aabb_max"], lf, cnt, is_leaf, leaf_of)
+    node_box, node_child, node_axis, nw, _, kids = _upper_node_tables(
+        host["aabb_min"], host["aabb_max"], lf, cnt, is_leaf, leaf_of,
+        collapsed)
     tables = {"node_box": node_box, "node_child": node_child,
-              "node_axis": node_axis,
+              "node_axis": node_axis, "child_node": kids,
               **_leaf_tables(lf, cnt, v0, e1, e2, nrm, pid, lay)}
     if device is None:
         device = tris.v0.device if tris is not None else DEFAULT_DEVICE
@@ -357,10 +383,27 @@ def build_wide8_scene(bvh, tris, _np=None, stream_leaves: bool = False,
 
 
 def refresh_wide_scene(wide: WideScene, bvh, tris) -> WideScene:
-    """Device refresh of the tables after a refit: not ported yet."""
-    raise NotImplementedError(
-        "refresh_wide_scene is not ported yet (ROADMAP A.2: refit_bvh on "
-        "device)")
+    """The tables after a refit, on their device: child boxes regathered
+    from the refit ``bvh`` through ``child_node``, leaf triangles and slot
+    normals from the re-derived slot-ordered ``tris`` through
+    ``slot_tri``.  The topology (codes, axes, counts, slot ids) is
+    unchanged; the cached quantized boxes are dropped.  Returns a new
+    ``WideScene``; the old one's tensors are not written."""
+    if wide.child_node is None:
+        raise ValueError("refresh_wide_scene: these tables were converted "
+                         "from the JAX package and carry no child_node "
+                         "table; build them with the port's builders")
+    slots = wide.slot_tri.long().view(wide.num_leaves, LEAF_CAP)
+    ks = torch.arange(LEAF_CAP, device=slots.device)
+    valid = (ks < wide.leaf_count[:, None])[..., None]       # (L, 4, 1)
+    tri = torch.cat([tris.v0[slots], tris.edge1[slots], tris.edge2[slots]],
+                    dim=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=slots.device)
+    return dataclasses.replace(
+        wide, node_box=_child_boxes(wide.child_node, bvh),
+        leaf_tri=torch.where(valid, tri, zero),
+        slot_normal=torch.where(valid, tris.normal[slots], zero).view(-1, 3),
+        _q=None)
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,12 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from ..accel.bvh import BVH, build_bvh
+from ..accel.bvh import BVH, _bvh_host, build_bvh, refit_bvh
 from ..accel.traverse import cast_rays_bvh
 from ..core.brute import any_hit_brute, cast_rays_brute
+from ..core.geometry import aabb_of_triangles, triangle_fields
 from ..core.types import (
     ALL_LAYERS,
     DEFAULT_DEVICE,
@@ -31,10 +33,16 @@ from ..kernels.cluster import (
     ClusterScene,
     build_cluster_scene,
     cluster_tcap_for,
+    refresh_cluster_scene,
 )
 from ..kernels.cluster_v2 import cast_rays_cluster_v2
 from ..kernels.traverse_pallas import cast_rays_wide
-from ..kernels.wide import WideScene, build_wide8_scene, build_wide_scene
+from ..kernels.wide import (
+    WideScene,
+    build_wide8_scene,
+    build_wide_scene,
+    refresh_wide_scene,
+)
 
 BACKENDS = ("cluster", "pallas", "jnp", "brute")
 
@@ -104,9 +112,42 @@ class RayScene:
         return occluded
 
     def refit(self, v0, v1, v2) -> "RayScene":
-        raise NotImplementedError(
-            "RayScene.refit is not ported yet (ROADMAP A.2/A.3: refit_bvh "
-            "and the device refresh of the cluster tables)")
+        """Refit to moved vertices (same topology and slot order), on the
+        device the tables live on.
+
+        ``v0`` / ``v1`` / ``v2`` are (T, 3) arrays or tensors in the
+        ORIGINAL triangle order; they go to the tables' device, are put in
+        slot order by ``tri_order``, the triangles are re-derived, the BVH
+        refit and the backend's tables refreshed.  Returns a new scene;
+        the old one stays valid and unchanged."""
+        dev = self.tris.v0.device
+        perm = self.bvh.tri_order.long()
+        slot = [torch.as_tensor(v if isinstance(v, torch.Tensor)
+                                else np.asarray(v, np.float32),
+                                dtype=torch.float32, device=dev)[perm]
+                for v in (v0, v1, v2)]
+        return _refit_slots(self, *slot)
+
+
+def _refit_slots(scene: RayScene, v0, v1, v2) -> RayScene:
+    """``scene`` refit to slot-ordered vertex tensors on its device: the
+    triangles re-derived (``triangle_fields``), their boxes taken from
+    v0, v0 + e1 and v0 + e2 as the JAX package does, the BVH refit, then
+    the wide and cluster tables refreshed.  Nothing of ``scene`` is
+    written."""
+    with record_function("refit.scene"):
+        v0, e1, e2, nrm = triangle_fields(v0, v1, v2)
+        tris = Triangles(v0=v0, edge1=e1, edge2=e2, normal=nrm,
+                         prim_id=scene.tris.prim_id,
+                         layers=scene.tris.layers)
+        bvh = refit_bvh(scene.bvh, *aabb_of_triangles(tris.v0, tris.v1,
+                                                      tris.v2))
+        wide = (refresh_wide_scene(scene.wide, bvh, tris)
+                if scene.wide is not None else None)
+        cluster = (refresh_cluster_scene(scene.cluster, bvh, tris)
+                   if scene.cluster is not None else None)
+        return dataclasses.replace(scene, tris=tris, bvh=bvh, wide=wide,
+                                   cluster=cluster)
 
 
 def build_scene(v0, v1, v2, layers=None, prim_id=None, use_bvh=True,
@@ -129,7 +170,7 @@ def build_scene(v0, v1, v2, layers=None, prim_id=None, use_bvh=True,
     v2 = np.asarray(v2, np.float32)
     t = v0.shape[0]
     bvh = build_bvh(v0, v1, v2, device=device)
-    perm = bvh.host["tri_order"]
+    perm = _bvh_host(bvh, "tri_order")
     prim_id = (np.arange(t, dtype=np.int32) if prim_id is None
                else np.asarray(prim_id, np.int32))
     layers = (np.full((t,), ALL_LAYERS, np.int32) if layers is None
@@ -162,7 +203,7 @@ _WIDE_VMEM_BUDGET = 96 * 1024 * 1024
 
 def _wide_vmem_fit(bvh: BVH, branching: int = 8) -> str:
     # 'resident' | 'stream' | 'stream_all' -- how much of the layout fits
-    count = bvh.host["count"]
+    count = _bvh_host(bvh, "count")
     num_internal = int((count == 0).sum()) + 1
     num_leaf = int((count > 0).sum()) + 1
     if branching == 8:

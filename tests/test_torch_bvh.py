@@ -38,6 +38,10 @@ def assert_bvh_equal(bp, bj):
         a = bp.host[f]
         np.testing.assert_array_equal(a, np.asarray(getattr(bj, f)))
         np.testing.assert_array_equal(getattr(bp, f).numpy(), a)
+    assert len(bp.levels) == len(bj.levels)
+    for lp, lj in zip(bp.levels, bj.levels):
+        assert lp.dtype == torch.int32
+        np.testing.assert_array_equal(lp.numpy(), np.asarray(lj))
 
 
 def test_native_library_builds_from_the_jax_source():
@@ -136,9 +140,3 @@ def test_prim_id_guard_kept():
     with pytest.raises(ValueError, match="2\\^24"):
         pcluster.build_cluster_scene(b, None, _np=host)
 
-
-def test_refit_waits_for_its_slice():
-    b = pbvh.build_bvh(*(small_tris()[:, k] for k in range(3)),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        pbvh.refit_bvh(b, None, None)

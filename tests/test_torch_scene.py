@@ -183,8 +183,6 @@ def test_unported_backends_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
             build_scene_from_tri_array(tris, backend=backend, device="cpu")
     scene = build_scene_from_tri_array(tris, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        scene.refit(tris[:, 0], tris[:, 1], tris[:, 2])
     scene.backend = "frontier"
     with pytest.raises(NotImplementedError, match="frontier"):
         scene.cast_rays(port_rays(np.zeros((1, 3)), np.ones((1, 3))))
@@ -307,9 +305,11 @@ def test_entry_points_default_to_the_card():
 
     from messyerraytracer_tpu_torch.accel import bvh as pbvh
     from messyerraytracer_tpu_torch.core import types as ptypes
+    from messyerraytracer_tpu_torch.debug import debug as pdebug
     from messyerraytracer_tpu_torch.kernels import cluster as pcluster
     from messyerraytracer_tpu_torch.kernels import cluster_tlas as pctlas
     from messyerraytracer_tpu_torch.render import camera as pcamera
+    from messyerraytracer_tpu_torch.scene import serialize as pserialize
 
     cuda = torch.device("cuda")
     for fn in (build_scene, SceneTLAS.__init__, pbvh.build_bvh,
@@ -317,7 +317,8 @@ def test_entry_points_default_to_the_card():
                pctlas.build_cluster_tlas, pctlas.cluster_tlas_from_jax,
                pcluster.cluster_scene_from_jax, ptypes.make_miss,
                ptypes.make_triangles, pcamera.generate_rays,
-               pcamera.debug_grid_rays):
+               pcamera.debug_grid_rays, pdebug.cast_debug_rays,
+               pserialize.load_scene):
         assert inspect.signature(fn).parameters["device"].default == cuda, fn
     # make_rays follows a tensor argument, else the card
     assert inspect.signature(

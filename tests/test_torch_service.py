@@ -125,20 +125,6 @@ def test_backend_chain_equals_jax(services):
         jax.set_backend("brute")
 
 
-def test_transform_updates_wait_for_refit():
-    svc = psvc.RayTracerService(device="cpu")
-    iid = svc.register_mesh(meshes.uv_sphere(1.0, 8, 16))
-    svc.build()
-    assert svc.cast_ray((0.11, 0.07, 4), (0, 0, -1))["hit"]
-    with pytest.raises(NotImplementedError, match="A.5"):
-        svc.set_transform(iid, translate((5, 0, 0)))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        svc.refit()
-    svc.clear_scene()
-    with pytest.raises(RuntimeError, match="build"):
-        svc.cast_ray((0, 0, 4), (0, 0, -1))
-
-
 def test_ray_batch_and_probe_equal_jax(services):
     port, jax = services
     batches = (psvc.RayBatch(port), jsvc.RayBatch(jax))

@@ -24,7 +24,6 @@ from messyerraytracer_tpu_torch.kernels.traverse_pallas import (  # noqa
     wide_cast_plain,
 )
 from messyerraytracer_tpu_torch.kernels.wide import (  # noqa: E402
-    refresh_wide_scene,
     wide_scene_from_jax,
 )
 from messyerraytracer_tpu_torch.scene import scene as pscene  # noqa: E402
@@ -129,12 +128,6 @@ def test_vmem_fit_flags_match_jax():
         for k in (2, 8):
             assert (pscene._wide_vmem_fit(bvh, k)
                     == jscene._wide_vmem_fit(bvh, k))
-
-
-def test_refresh_waits_for_refit():
-    _, ps = builds("sphere", 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        refresh_wide_scene(ps.wide, ps.bvh, ps.tris)
 
 
 def wide_rays(n, seed):
