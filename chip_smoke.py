@@ -75,7 +75,26 @@ wide_cast.cu; nvcc -> ctypes), then:
      version's, ``bvh_wireframe`` timed; (f) ``save_scene`` /
      ``load_scene`` of the twin, timed, the loaded frame equal to the
      saved one's.  Each part's B1 / B4 launches are counted from its own
-     run and added to the kernels line.
+     run and added to the kernels line;
+  7. the frontier backends, the two-level casts and the multi-device
+     casts at full size: (a) ``backend="frontier"`` and ``"frontier_q"``
+     on phase 2's flat twin at 1080p (timed, peak memory, per-ray
+     counters beside B1's and B4's, parity with brute and bit equality
+     where the prims agree, prims against B4's frame); (b)
+     ``cast_rays_two_level_fast`` on the instanced headline scene at
+     1080p and ``cast_rays_two_level`` (one B1 cast per instance) on
+     65,536 rays, each against the instanced cast (off ties only cracks
+     at an edge), table bytes; (c) ``cast_rays_sharded`` on meshes of 1
+     and 4 entries of the card, bit-equal to the single cast on B1 and
+     B4, ``cast_rays_scene_sharded`` with 4 shards of the 1M scene
+     (parity with brute and with the unsharded pallas frame),
+     ``render_step_sharded`` at 1080p and ``dryrun_multichip(4)``; (d)
+     frontier, frontier_q and the two-level fast cast on the card against
+     the CPU, bit for bit; (e) only where more than one card is visible,
+     the paths of (c) on ``make_mesh()``, one shard a card, bit-equal to
+     the same mesh size on one card and timed beside it.  The frontier and two-level fast paths launch
+     neither kernel (checked); the other paths' launches are counted from
+     their own runs.
 
 Every number is printed beside the card's name and power limit.  The last
 two lines are the kernel summary and the result, both JSON.  Exits
@@ -1639,6 +1658,535 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
     return {"b1": b1, "b4": b4}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the frontier backends, the two-level casts, multi-device casts
+# ---------------------------------------------------------------------------
+
+LOOP_RAYS = 65_536          # rays of the instance-loop cast (215 B1 casts)
+SMALL_RAYS = 16_384         # rays of the card-against-CPU casts
+
+
+def table_bytes(x) -> int:
+    """Bytes of every tensor of a table dataclass, tuples included."""
+    import dataclasses
+
+    import torch
+
+    total = 0
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        for t in (v if isinstance(v, tuple) else (v,)):
+            if isinstance(t, torch.Tensor):
+                total += nbytes(t)
+    return total
+
+
+def peak_mib(fn):
+    """(result, MiB allocated at the peak of ``fn`` above what was allocated
+    before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def reset_launches() -> None:
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cluster_cast_cuda)
+    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
+        wide_cast_cuda)
+
+    cluster_cast_cuda.launches = 0
+    wide_cast_cuda.launches = 0
+
+
+def read_launches() -> tuple[int, int]:
+    """(B1, B4) launches since ``reset_launches``, after a synchronize."""
+    import torch
+
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cluster_cast_cuda)
+    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
+        wide_cast_cuda)
+
+    torch.cuda.synchronize()
+    return cluster_cast_cuda.launches, wide_cast_cuda.launches
+
+
+def small_tlas(device):
+    """A small SceneTLAS: a sphere and a box, 27 instances turned about y
+    and scaled, some layer-masked."""
+    from messyerraytracer_tpu_torch.accel.tlas import SceneTLAS
+    from messyerraytracer_tpu_torch.utils import meshes
+
+    rng = np.random.default_rng(23)
+    tlas = SceneTLAS(device=device)
+    ids = [tlas.add_mesh(meshes.uv_sphere(1.0, 16, 32)),
+           tlas.add_mesh(meshes.box((1.0, 2.0, 1.0)))]
+    for i in range(27):
+        a, s = rng.uniform(0, 6.3), rng.uniform(0.4, 1.3)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = np.float32([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                                [-np.sin(a), 0, np.cos(a)]]) * s
+        m[:3, 3] = rng.uniform(-6, 6, 3)
+        tlas.add_instance(ids[i % 2], m, layers=-1 if i % 3 else 0b01)
+    tlas.build_tlas()
+    return tlas
+
+
+# The two-level casts and the instanced one are object-space casts with
+# different arithmetic (classic Moller-Trumbore against B1's anchored
+# Plucker test with its watertight band), so a ray through a shared edge
+# can hit the nearer triangle in one and fall through the crack to a
+# farther surface in the other (on the H100: 18 of the 2,073,600 frame
+# rays after phase 6's moves; PERF.md).  Each such ray's
+# nearer hit must lie within CRACK_ULPS ulps of the scene's largest
+# coordinate of an edge of its triangle, measured across the ray.
+CRACK_ULPS = 16
+
+
+def crack_grazes(ha, hb_, rays, world_tris):
+    """Where the prims of two casts ``ha`` and ``hb_`` differ off exact-t
+    ties, check that the nearer of the two hits lies within CRACK_ULPS
+    ulps of the scene's largest coordinate of its triangle's nearest edge,
+    across the ray (barycentric weight x the triangle's altitude onto that
+    edge x |cos| of the angle between the ray and the triangle's normal).
+    Brute over ``world_tris`` says which side it takes.  Returns (prims
+    equal, a summary)."""
+    import torch
+
+    from messyerraytracer_tpu_torch.core.brute import cast_rays_brute
+
+    same = ha.prim_id == hb_.prim_id
+    both = ha.hit & hb_.hit
+    tie = both & ((ha.t - hb_.t).abs() <= 4e-6 * torch.maximum(
+        hb_.t.abs(), torch.ones_like(hb_.t)))
+    off = torch.nonzero(~same & ~tie)[:, 0]
+    check(off.numel() <= 4096, f"{off.numel()} rays differ off ties")
+    if not off.numel():
+        return same, {"rays": 0}
+    hr, _ = cast_rays_brute(rays.take(off), world_tris, chunk=8192)
+    first = ha.t[off] <= hb_.t[off]
+    def pick(f):
+        return torch.where(first, getattr(ha, f)[off], getattr(hb_, f)[off])
+
+    p = pick("prim_id").long()
+    u, v = pick("u").double(), pick("v").double()
+    e1, e2 = world_tris.edge1[p].double(), world_tris.edge2[p].double()
+    area2 = torch.linalg.vector_norm(torch.linalg.cross(e1, e2), dim=-1)
+    dist = torch.stack([
+        (1.0 - u - v).abs() * area2 / torch.linalg.vector_norm(e2 - e1,
+                                                               dim=-1),
+        u.abs() * area2 / torch.linalg.vector_norm(e2, dim=-1),
+        v.abs() * area2 / torch.linalg.vector_norm(e1, dim=-1)]).amin(0)
+    cos = (world_tris.normal[p].double()
+           * rays.direction[off].double()).sum(-1).abs()
+    big = float(max(world_tris.v0.abs().max(), world_tris.v1.abs().max(),
+                    world_tris.v2.abs().max()))
+    ulps = dist * cos / float(np.spacing(np.float32(big)))
+    summary = {"rays": off.numel(),
+               "brute sides with the first": int(
+                   (ha.prim_id[off] == hr.prim_id).sum()),
+               "with the second": int((hb_.prim_id[off] == hr.prim_id)
+                                      .sum()),
+               "nearer hit's edge distance, ulps": float(ulps.max())}
+    check(bool((ulps <= CRACK_ULPS).all()),
+          f"off ties only cracks at an edge {json.dumps(summary)}")
+    return same, summary
+
+
+def phase_frontier(card: str, device, ctx: dict) -> dict:
+    """Phase 7a: the frontier backends on the 1M flat twin at 1080p."""
+    import dataclasses
+
+    import torch
+
+    from messyerraytracer_tpu_torch.accel.frontier import (
+        cast_rays_frontier)
+    from messyerraytracer_tpu_torch.core.brute import TIE_RTOL, parity
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cast_rays_cluster_v2)
+
+    flat, pallas = ctx["flat"], ctx["pallas"]
+    rays, sub, hb = ctx["rays"], ctx["sub"], ctx["hb"]
+    n = rays.count
+    _, _, _, pr1 = cast_rays_cluster_v2(rays, flat.cluster,
+                                        return_per_ray=True)
+    hp, sp = pallas.cast_rays(rays)
+    ctx["pallas_frame"] = (hp, sp)
+    counters = {"B1 tri_tests/ray": float(pr1["tri_tests"].float().mean()),
+                "B1 node visits/ray": float(pr1["node_visits"].float()
+                                            .mean()),
+                "B4 tri_tests/ray": int(sp.tri_tests) / n,
+                "B4 pops/ray": int(sp.bvh_nodes_visited) / n}
+    out = {}
+    for backend in ("frontier", "frontier_q"):
+        scene = dataclasses.replace(flat, backend=backend)
+        fs, build_s = sync_s(scene._frontier_for_backend)
+        # ---- the path's own run: counts reset just before, read after
+        reset_launches()
+        (h, s), peak = peak_mib(lambda: scene.cast_rays(rays))
+        check(read_launches() == (0, 0),
+              f"{backend}: the frontier path launches neither B1 nor B4")
+        check(scene._frontier_for_backend() is fs,
+              f"{backend}: the tables are built once")
+        check(int(s.stack_drops) == 0 and bool(torch.isfinite(h.t).all()),
+              f"{backend}: finite t")
+        _, _, occ, pr = cast_rays_frontier(rays, fs, flat.tris,
+                                           any_hit=True,
+                                           return_per_ray_stats=True)
+        check(torch.equal(occ, h.hit), f"{backend}: any hit == hit")
+        _, _, _, pr = cast_rays_frontier(rays, fs, flat.tris,
+                                         return_per_ray_stats=True)
+        check(int(pr["tri_tests"].sum(dtype=torch.int64))
+              == int(s.tri_tests), f"{backend}: per-ray counts sum")
+        ms = cuda_ms(lambda: scene.cast_rays(rays), 3)
+        split = device_split(lambda: scene.cast_rays(rays), ("cast",))
+        hs, _ = scene.cast_rays(sub)
+        ok = parity(hs, hb)
+        check(ok, f"{backend} parity vs brute (4096 rays)")
+        same = hs.prim_id == hb.prim_id
+        check(all(bit_equal(getattr(hs, f)[same], getattr(hb, f)[same])
+                  for f in HIT_FIELDS),
+              f"{backend}: bit-equal to brute where the prims agree")
+        diff = h.prim_id != hp.prim_id
+        tie = (h.t - hp.t).abs() <= TIE_RTOL * torch.maximum(
+            hp.t.abs(), torch.ones_like(hp.t))
+        check(parity(h, hp), f"{backend} vs B4 (8-wide) on the frame")
+        out[backend] = {
+            "ms": ms, "Mrays/s": n / ms / 1e3, "peak MiB": peak,
+            "tables MiB": table_bytes(fs) / 2 ** 20, "build s": build_s,
+            "tri_tests/ray": float(pr["tri_tests"].float().mean()),
+            "nodes/ray": float(pr["nodes_visited"].float().mean()),
+            "prims != B4": int(diff.sum()),
+            "of which t ties (TIE_RTOL)": int((diff & tie).sum()),
+            "parity vs brute": ok,
+            "one frame under torch.profiler": {
+                key: split[key] for key in ("wall", "device busy",
+                                            "idle share", "device events")}}
+        print(f"[{card}] phase 7a {backend} 1080p on the 1M flat twin: "
+              f"{json.dumps(out[backend])}", flush=True)
+    print(f"[{card}] phase 7a per-ray counters beside B1's and B4's "
+          f"{json.dumps(counters)}; tri_per_ray_exact_1m "
+          f"{out['frontier']['tri_tests/ray']}", flush=True)
+    return out
+
+
+def phase_two_level(card: str, device, ctx: dict) -> int:
+    """Phase 7b: the two-level casts on the instanced headline scene,
+    against the instanced cast (B1).  Returns B1's launches."""
+    import torch
+
+    tlas, rays = ctx["tlas"], ctx["rays"]
+    n = rays.count
+    ft, build_s = sync_s(tlas.build_two_level)
+    world = world_triangles(tlas, device)
+    hi, _, _, ii = tlas.cast_rays_instanced(rays)
+    # ---- the path's own run: counts reset just before, read after
+    reset_launches()
+    (h2, s2, occ2, i2), peak = peak_mib(
+        lambda: tlas.cast_rays_two_level_fast(rays))
+    check(read_launches() == (0, 0),
+          "two-level fast: launches neither B1 nor B4")
+    check(tlas._two_level is ft, "two-level fast: the tables are reused")
+    check(bool(torch.isfinite(h2.t).all()) and torch.equal(h2.hit, i2 >= 0),
+          "two-level fast: finite t, an instance id on every hit")
+    same, grazes = crack_grazes(h2, hi, rays, world)
+    check(torch.equal(i2[same], ii[same]),
+          "two-level fast: instance ids == instanced where prims agree")
+    ms = cuda_ms(lambda: tlas.cast_rays_two_level_fast(rays), 3)
+    split = device_split(lambda: tlas.cast_rays_two_level_fast(rays),
+                         ("cast",))
+    flat = tlas.flat
+    sizes = {"FrontierTLAS MiB": table_bytes(ft) / 2 ** 20,
+             "flat twin frontier tables MiB": table_bytes(flat.frontier)
+             / 2 ** 20,
+             "flat twin cluster tables MiB": table_bytes(flat.cluster)
+             / 2 ** 20,
+             "flat twin triangles MiB": table_bytes(flat.tris) / 2 ** 20}
+    print(f"[{card}] phase 7b cast_rays_two_level_fast 1080p: {ms} ms/frame"
+          f" ({n / ms / 1e3} Mrays/s), peak {peak} MiB, build {build_s} s, "
+          f"tri_tests/ray {int(s2.tri_tests) / n}, nodes/ray "
+          f"{int(s2.bvh_nodes_visited) / n}; prims == instanced on "
+          f"{float(same.float().mean())} of rays, off ties only cracks at "
+          f"an edge {json.dumps(grazes)}; {json.dumps(sizes)}; one frame "
+          f"under torch.profiler {json.dumps(split)}", flush=True)
+
+    # ---- the instance loop on a strided subsample: one B1 cast each
+    idx = torch.arange(LOOP_RAYS, device=device) * (n // LOOP_RAYS)
+    sub = rays.take(idx)
+    reset_launches()
+    (hl, il), loop_s = sync_s(lambda: tlas.cast_rays_two_level(sub))
+    b1, b4 = read_launches()
+    check(b1 == len(tlas.instances) and b4 == 0,
+          f"instance loop: one B1 launch per instance ({b1})")
+    same_l, grazes_l = crack_grazes(hl, take_hits(hi, idx), sub, world)
+    check(torch.equal(il[same_l], ii[idx][same_l]),
+          "instance loop: instance ids == instanced where prims agree")
+    print(f"[{card}] phase 7b cast_rays_two_level on {LOOP_RAYS} rays: "
+          f"{loop_s * 1e3} ms wall, B1 launches {b1}; prims == instanced "
+          f"on {float(same_l.float().mean())} of rays, off ties only "
+          f"cracks at an edge {json.dumps(grazes_l)}", flush=True)
+    return b1
+
+
+def phase_sharding(card: str, device, ctx: dict) -> dict:
+    """Phase 7c: the sharded casts on meshes of 1 and 4 entries of the
+    card.  Returns B1's and B4's launches."""
+    import torch
+
+    import messyerraytracer_tpu_torch as mrt
+    from messyerraytracer_tpu_torch.core.brute import parity
+    from messyerraytracer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from messyerraytracer_tpu_torch.parallel.sharding import (
+        build_sharded_scene, cast_rays_scene_sharded, cast_rays_sharded,
+        make_mesh, render_step_sharded)
+
+    flat, pallas, rays = ctx["flat"], ctx["pallas"], ctx["rays"]
+    sub, hb = ctx["sub"], ctx["hb"]
+    n = rays.count
+    single = {"B1": (flat,) + flat.cast_rays(rays),
+              "B4": (pallas,) + ctx["pallas_frame"]}
+    b1 = b4 = 0
+    times = {}
+    for k in (1, 4):
+        mesh = make_mesh(k, devices=[device] * k)
+        for name, (scene, h1, s1) in single.items():
+            reset_launches()
+            hs, ss, occ = cast_rays_sharded(rays, scene, mesh)
+            l1, l4 = read_launches()
+            b1, b4 = b1 + l1, b4 + l4
+            check((l1, l4) == ((k, 0) if name == "B1" else (0, k)),
+                  f"sharded x{k} on {name}: one launch per shard")
+            check(same_hits(hs, h1) and torch.equal(occ, h1.hit)
+                  and all(int(getattr(ss, f)) == int(getattr(s1, f))
+                          for f in ("rays_cast", "tri_tests",
+                                    "bvh_nodes_visited", "hits",
+                                    "stack_drops")),
+                  f"sharded x{k} on {name} == the single cast bit for bit")
+            times[f"x{k} {name}"] = cuda_ms(
+                lambda: cast_rays_sharded(rays, scene, mesh), 3)
+    print(f"[{card}] phase 7c cast_rays_sharded 1080p on meshes of 1 and "
+          f"4 x {device}: == the single cast bit for bit (hits, occluded, "
+          f"summed stats); ms {json.dumps(times)}", flush=True)
+
+    mesh = make_mesh(4, devices=[device] * 4)
+    (stacked, meta, id_maps), build_s = sync_s(
+        lambda: build_sharded_scene(ctx["world_tris"], 4, mesh))
+    reset_launches()
+    hss, sss = cast_rays_scene_sharded(rays, stacked, meta, id_maps, mesh)
+    l1, l4 = read_launches()
+    b1, b4 = b1 + l1, b4 + l4
+    check((l1, l4) == (0, 4), "scene-sharded: one B4 launch per shard")
+    check(int(sss.stack_drops) == 0 and parity(hss, single["B4"][1]),
+          "scene-sharded x4 vs the unsharded pallas cast")
+    ok = parity(cast_rays_scene_sharded(sub, stacked, meta, id_maps,
+                                        mesh)[0], hb)
+    check(ok, "scene-sharded x4 parity vs brute (4096 rays)")
+    ms = cuda_ms(lambda: cast_rays_scene_sharded(rays, stacked, meta,
+                                                 id_maps, mesh), 3)
+    diff = int((hss.prim_id != single["B4"][1].prim_id).sum())
+    print(f"[{card}] phase 7c cast_rays_scene_sharded x4 (shards of "
+          f"{[w.leaf_tri.shape[0] for w in stacked]} leaves, build "
+          f"{build_s} s): {ms} ms/frame, prims != unsharded pallas on {diff} "
+          f"rays (t ties by the parity rule), parity vs brute {ok}",
+          flush=True)
+
+    cam = mrt.CameraParams.look_at((0, 26, 55), (0, 1, 0), fov_degrees=60.0)
+    lights, env, mats = shading(device)
+    reset_launches()
+    img, step_s = sync_s(lambda: render_step_sharded(
+        flat, cam, *FRAME, mesh, lights=lights, env=env, materials=mats,
+        max_bounces=1))
+    r1, r4 = read_launches()
+    check(tuple(img.shape) == (n, 3) and bool(torch.isfinite(img).all())
+          and r1 == 16 and r4 == 0,
+          f"render_step_sharded 1080p: finite, 4 B1 casts a shard ({r1})")
+    reset_launches()
+    dry, dry_s = sync_s(lambda: dryrun_multichip(4, device=device))
+    d1, d4 = read_launches()
+    b1, b4 = b1 + r1 + d1, b4 + r4 + d4
+    print(f"[{card}] phase 7c render_step_sharded 1080p x 1 bounce on 4 "
+          f"shards: {step_s * 1e3} ms wall, mean radiance "
+          f"{float(img.mean())}, B1 launches {r1}; dryrun_multichip(4) "
+          f"{dry_s} s (B1 {d1}, B4 {d4} launches) {json.dumps(dry)}",
+          flush=True)
+    if torch.cuda.device_count() < 2:
+        print(f"[{card}] phase 7e skipped: one card visible, no mesh of "
+              f"distinct cards", flush=True)
+        return {"b1": b1, "b4": b4}
+    c1, c4 = phase_cards(card, device, ctx, img if
+                         torch.cuda.device_count() == 4 else None)
+    return {"b1": b1 + c1, "b4": b4 + c4}
+
+
+def all_cards_s(fn, iters: int) -> float:
+    """Mean wall seconds per call of ``fn`` over ``iters`` calls after
+    one warm-up, every visible card synchronized before and after."""
+    import torch
+
+    def sync():
+        for k in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(k)
+
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / iters
+
+
+def phase_cards(card: str, device, ctx: dict, img_ref) -> tuple[int, int]:
+    """Phase 7e, only where more than one card is visible: the sharded
+    paths on ``make_mesh()``, one shard on each card, held bit for bit
+    against the same paths on as many entries of ``device`` (the shard
+    bounds and seeds are the same), and timed beside them.  ``img_ref``
+    is that render step's image when phase 7c already made it.  Returns
+    B1's and B4's launches."""
+    import torch
+
+    import messyerraytracer_tpu_torch as mrt
+    from messyerraytracer_tpu_torch.core.brute import parity
+    from messyerraytracer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from messyerraytracer_tpu_torch.parallel.sharding import (
+        _replicas, _shard_bounds, _shard_cast, build_sharded_scene,
+        cast_rays_scene_sharded, cast_rays_sharded, make_mesh,
+        render_step_sharded)
+
+    cards = make_mesh()
+    n_dev = len(cards)
+    check(len(set(cards)) == n_dev > 1, f"make_mesh(): {cards}")
+    one = make_mesh(n_dev, devices=[device] * n_dev)
+    flat, pallas, rays = ctx["flat"], ctx["pallas"], ctx["rays"]
+    b1 = b4 = 0
+    ms = {}
+    for name, scene in (("B1", flat), ("B4", pallas)):
+        want = cast_rays_sharded(rays, scene, one)
+        reset_launches()
+        got = cast_rays_sharded(rays, scene, cards)
+        l1, l4 = read_launches()
+        b1, b4 = b1 + l1, b4 + l4
+        check(same_hits(got[0], want[0]) and torch.equal(got[2], want[2])
+              and all(int(getattr(got[1], f)) == int(getattr(want[1], f))
+                      for f in ("tri_tests", "bvh_nodes_visited", "hits",
+                                "stack_drops")),
+              f"sharded on {n_dev} cards == on {n_dev} x {device} ({name})")
+        for label, mesh in (("cards", cards), ("one card", one)):
+            ms[f"{name} call, {label}"] = all_cards_s(
+                lambda: cast_rays_sharded(rays, scene, mesh), 3) * 1e3
+            # the casts alone: tables and rays already on each shard's card
+            tables = _replicas(
+                scene.cluster if name == "B1" else scene.wide, mesh)
+            parts = [(tables[k], rays.take(slice(s, e)).to(mesh[k]))
+                     for k, s, e in _shard_bounds(rays.count, n_dev)]
+            ms[f"{name} casts only, {label}"] = all_cards_s(
+                lambda: [_shard_cast(t, r, -1, False) for t, r in parts],
+                3) * 1e3
+    stacked, meta, id_maps = build_sharded_scene(ctx["world_tris"], n_dev,
+                                                 cards)
+    reset_launches()
+    hss, sss = cast_rays_scene_sharded(rays, stacked, meta, id_maps, cards)
+    l1, l4 = read_launches()
+    b1, b4 = b1 + l1, b4 + l4
+    check(int(sss.stack_drops) == 0 and parity(hss, ctx["pallas_frame"][0])
+          and parity(cast_rays_scene_sharded(ctx["sub"], stacked, meta,
+                                             id_maps, cards)[0], ctx["hb"]),
+          f"scene-sharded on {n_dev} cards: parity vs the pallas frame and "
+          f"brute")
+    ms["scene-sharded call, cards"] = all_cards_s(
+        lambda: cast_rays_scene_sharded(rays, stacked, meta, id_maps,
+                                        cards), 3) * 1e3
+    cam = mrt.CameraParams.look_at((0, 26, 55), (0, 1, 0), fov_degrees=60.0)
+    lights, env, mats = shading(device)
+    step = {"lights": lights, "env": env, "materials": mats,
+            "max_bounces": 1}
+    if img_ref is None:
+        img_ref = render_step_sharded(flat, cam, *FRAME, one, **step)
+    reset_launches()
+    img = render_step_sharded(flat, cam, *FRAME, cards, **step)
+    r1, r4 = read_launches()
+    check(bit_equal(img, img_ref), f"render_step_sharded on {n_dev} cards "
+          f"== on {n_dev} x {device} bit for bit")
+    ms["render step, cards"] = all_cards_s(
+        lambda: render_step_sharded(flat, cam, *FRAME, cards, **step),
+        1) * 1e3
+    reset_launches()
+    dry = dryrun_multichip(n_dev)
+    d1, d4 = read_launches()
+    print(f"[{card}] phase 7e {n_dev} cards {[str(d) for d in cards]}: "
+          f"ray-sharded (B1, B4), the render step and the scene-sharded "
+          f"cast == / parity with the same on {n_dev} x {device}; "
+          f"dryrun_multichip({n_dev}) {json.dumps(dry)}; ms "
+          f"{json.dumps(ms)}", flush=True)
+    return b1 + r1 + d1, b4 + r4 + d4
+
+
+def phase_frontier_card_vs_cpu(card: str, device) -> None:
+    """Phase 7d: frontier, frontier_q and the two-level fast cast on the
+    card and on the CPU, bit for bit on t, u, v, prim ids, instance ids and
+    the per-ray counters."""
+    import torch
+
+    from messyerraytracer_tpu_torch.accel.frontier import (
+        cast_rays_frontier)
+    from messyerraytracer_tpu_torch.scene.scene import (
+        build_scene_from_tri_array)
+
+    cpu = torch.device("cpu")
+    tris, layers = small_flat_tris()
+    fields = ("t", "u", "v", "prim_id", "hit_layers")
+    for backend in ("frontier", "frontier_q"):
+        res = []
+        for dev in (device, cpu):
+            scene = build_scene_from_tri_array(tris, layers=layers,
+                                               backend=backend, device=dev)
+            rays = random_rays(SMALL_RAYS, 31, 8.0, dev)
+            fs = scene._frontier_for_backend()
+            res.append([cast_rays_frontier(rays, fs, scene.tris, mask, ah,
+                                           return_per_ray_stats=True)
+                        for mask, ah in ((-1, False), (0b10, False),
+                                         (-1, True))])
+        for (ha, _, oa, pa), (hc, _, oc, pc) in zip(*res):
+            check(all(bit_equal(getattr(ha, f), getattr(hc, f))
+                      for f in fields) and torch.equal(oa.cpu(), oc)
+                  and all(torch.equal(pa[k].cpu(), pc[k]) for k in pa),
+                  f"{backend}: card == CPU bit for bit")
+    res = []
+    for dev in (device, cpu):
+        tlas = small_tlas(dev)
+        rays = random_rays(SMALL_RAYS, 37, 8.0, dev)
+        res.append([tlas.cast_rays_two_level_fast(rays, mask, ah)
+                    for mask, ah in ((-1, False), (0b01, False),
+                                     (-1, True))])
+    for (ha, sa, oa, ia), (hc, sc, oc, ic) in zip(*res):
+        check(all(bit_equal(getattr(ha, f), getattr(hc, f)) for f in fields)
+              and torch.equal(oa.cpu(), oc) and torch.equal(ia.cpu(), ic)
+              and int(sa.tri_tests) == int(sc.tri_tests)
+              and int(sa.bvh_nodes_visited) == int(sc.bvh_nodes_visited),
+              "two-level fast: card == CPU bit for bit")
+    print(f"[{card}] phase 7d frontier, frontier_q (closest, layer mask, "
+          f"any hit) and cast_rays_two_level_fast on {SMALL_RAYS} rays: "
+          f"card == CPU bit for bit on t, u, v, prims, layers, instance "
+          f"ids and counters", flush=True)
+
+
+def phase_multi(card: str, device, ctx: dict) -> dict:
+    """Phase 7: the frontier backends, the two-level casts and the
+    multi-device casts.  Returns B1's and B4's launches from its paths'
+    own runs."""
+    phase_frontier(card, device, ctx)
+    b1 = phase_two_level(card, device, ctx)
+    p = phase_sharding(card, device, ctx)
+    phase_frontier_card_vs_cpu(card, device)
+    return {"b1": b1 + p["b1"], "b4": p["b4"]}
+
+
 def main() -> int:
     import torch
 
@@ -1669,8 +2217,13 @@ def main() -> int:
     print(f"[{card}] phase 6 (dynamic scenes, debug, checkpoints) "
           f"{time.time() - t6} s; B1 launches {p6['b1']}, B4 launches "
           f"{p6['b4']}", flush=True)
-    k1["launches"] += p5["b1"] + p6["b1"]
-    k4["launches"] += p5["b4"] + p6["b4"]
+    t7 = time.time()
+    p7 = phase_multi(card, device, ctx)
+    print(f"[{card}] phase 7 (frontier, two-level, multi-device) "
+          f"{time.time() - t7} s; B1 launches {p7['b1']}, B4 launches "
+          f"{p7['b4']}", flush=True)
+    k1["launches"] += p5["b1"] + p6["b1"] + p7["b1"]
+    k4["launches"] += p5["b4"] + p6["b4"] + p7["b4"]
     print(f"[{card}] chip_smoke total {time.time() - t_start} s",
           flush=True)
     src = "messyerraytracer_tpu_torch/kernels/csrc/"

@@ -14,8 +14,13 @@ the instanced tables.  Transform updates keep the JAX package's two steps:
 ``set_transform`` refits the instanced tables at once, and ``refit_tlas``
 brings an already-built flat twin up to the current transforms (until
 then it casts the old ones, as in JAX; a twin first built after the
-update reads the new ones).  Both run on the tables' device.  The
-two-level and frontier casts wait for ROADMAP A.10.
+update reads the new ones).  Both run on the tables' device.
+
+Two more casts keep two-level semantics: ``cast_rays_two_level_fast``
+over the frontier TLAS and BLAS forest (``accel/tlas_frontier.py``, built
+lazily by ``build_two_level`` and dropped by every change of the meshes,
+instances or transforms), and ``cast_rays_two_level``, a loop over the
+instances through each mesh's own ``RayScene``.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 from torch.profiler import record_function
 
 from ..accel.bvh import _bvh_host
-from ..core.types import ALL_LAYERS, DEFAULT_DEVICE, Hits, Rays
+from ..accel.frontier import _norm
+from ..core.types import ALL_LAYERS, DEFAULT_DEVICE, NO_HIT, Hits, Rays
 from ..scene.scene import RayScene, _refit_slots, build_scene
 
 
@@ -125,6 +131,17 @@ class InstancedScene:
         return occluded
 
 
+def _apply_rt(m: torch.Tensor, p: torch.Tensor,
+              translate: bool = True) -> torch.Tensor:
+    """A (3, 4) [R|t] applied to (N, 3) points (or, with ``translate``
+    False, vectors) as explicit float32 multiply-adds, row by row:
+    ((m0 x + m1 y) + m2 z) + t."""
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    out = torch.stack([m[a, 0] * x + m[a, 1] * y + m[a, 2] * z
+                       for a in range(3)], dim=-1)
+    return out + m[:, 3] if translate else out
+
+
 def _world_slots(obj_slots, slot_inst, transforms):
     """World vertices (v0, v1, v2), each (F, 3), of slot-ordered
     object-space triangles (F, 3, 3) under their instances' (I, 3, 4)
@@ -152,6 +169,7 @@ class SceneTLAS:
         self._obj_tris: np.ndarray | None = None   # (F, 3, 3) object space
         self._flat_layers: np.ndarray | None = None
         self._ctlas = None                         # ClusterTLAS cache
+        self._two_level = None                     # FrontierTLAS cache
         # the flat twin's refit inputs on the device (set with the twin)
         self._slot_inst: torch.Tensor | None = None    # (F,) slot order
         self._obj_slots: torch.Tensor | None = None    # (F, 3, 3)
@@ -167,7 +185,7 @@ class SceneTLAS:
         lay_np = (np.full(tri_array.shape[0], ALL_LAYERS, np.int32)
                   if layers is None else np.asarray(layers, np.int32))
         self.meshes.append(MeshBLAS(scene, tri_array, lay_np))
-        self._ctlas = None
+        self._ctlas = self._two_level = None
         return len(self.meshes) - 1
 
     def add_instance(self, blas_id: int, transform,
@@ -177,7 +195,7 @@ class SceneTLAS:
             raise ValueError(f"no mesh with blas_id {blas_id}")
         self.instances.append(BLASInstance.create(blas_id, transform,
                                                   layers))
-        self._ctlas = None
+        self._ctlas = self._two_level = None
         return len(self.instances) - 1
 
     def build_tlas(self) -> None:
@@ -185,6 +203,7 @@ class SceneTLAS:
         world-space twin itself is built lazily on first use (``flat``)."""
         if not self.instances:
             raise ValueError("build_tlas: no instances")
+        self._two_level = None
         obj, inst_id, layers = [], [], []
         for i, inst in enumerate(self.instances):
             mesh = self.meshes[inst.blas_id]
@@ -302,6 +321,7 @@ class SceneTLAS:
         inst = self.instances[instance_id]
         self.instances[instance_id] = BLASInstance.create(
             inst.blas_id, _to_mat4(transform), inst.layers)
+        self._two_level = None
         if self._ctlas is not None:
             from ..kernels.cluster_tlas import set_transforms
 
@@ -319,17 +339,77 @@ class SceneTLAS:
                 self._flat, *_world_slots(self._obj_slots, self._slot_inst,
                                           self._transforms_tensor()))
 
-    # ---- not ported yet ----------------------------------------------
+    # ---- two-level casts ----------------------------------------------
     def build_two_level(self):
-        raise NotImplementedError(
-            "the frontier two-level tables are not ported yet (ROADMAP "
-            "A.10)")
+        """Build the frontier two-level tables (``accel/tlas_frontier``):
+        memory ~ meshes, not instances."""
+        from .tlas_frontier import build_frontier_tlas
 
-    def cast_rays_two_level(self, rays: Rays, query_mask=ALL_LAYERS):
-        raise NotImplementedError(
-            "cast_rays_two_level is not ported yet (ROADMAP A.10)")
+        self._two_level = build_frontier_tlas(self)
+        return self._two_level
 
     def cast_rays_two_level_fast(self, rays: Rays, query_mask=ALL_LAYERS,
                                  any_hit: bool = False):
-        raise NotImplementedError(
-            "cast_rays_two_level_fast is not ported yet (ROADMAP A.10)")
+        """Log-time two-level cast: the TLAS frontier descent, per-instance
+        object-space rays, the BLAS-forest descent.  Returns (hits, stats,
+        occluded, instance_id)."""
+        from .tlas_frontier import cast_rays_tlas
+
+        ft = self._two_level
+        if ft is None:
+            ft = self.build_two_level()
+        return cast_rays_tlas(rays, ft, query_mask, any_hit)
+
+    def cast_rays_two_level(self, rays: Rays, query_mask=ALL_LAYERS):
+        """Loop over the instances: each moves the rays to object space
+        (the direction not renormalized, so t stays world-parameterized),
+        casts them through its mesh's ``RayScene`` (kernel B1 on a cluster
+        mesh) and brings position and normal back with explicit float32
+        multiply-adds; a strictly closer world t wins.  O(instances): the
+        validation path.  Returns (hits, instance_id); prim ids in the
+        flattened numbering (instance base + mesh-local id)."""
+        dev = rays.origin.device
+        prim_base, acc = [], 0
+        for inst in self.instances:
+            prim_base.append(acc)
+            acc += self.meshes[inst.blas_id].num_tris
+        best = best_inst = None
+        for i, inst in enumerate(self.instances):
+            blas = self.meshes[inst.blas_id].scene
+            inv = torch.as_tensor(inst.inv_transform, device=dev)
+            obj_rays = Rays(origin=_apply_rt(inv, rays.origin),
+                            direction=_apply_rt(inv, rays.direction,
+                                                translate=False),
+                            t_min=rays.t_min, t_max=rays.t_max)
+            mask = (query_mask if inst.layers == ALL_LAYERS
+                    else int(query_mask) & inst.layers)
+            h, _ = blas.cast_rays(obj_rays, mask)
+            m = torch.as_tensor(inst.transform, device=dev)
+            wpos = _apply_rt(m, h.position)
+            # the normal through the inverse-transpose basis: n @ R^-1
+            n = h.normal
+            wn = torch.stack([n[:, 0] * inv[0, a] + n[:, 1] * inv[1, a]
+                              + n[:, 2] * inv[2, a] for a in range(3)],
+                             dim=-1)
+            wn = wn / _norm(wn)
+            z3 = torch.zeros_like(wpos)
+            hit = h.hit
+            h = Hits(t=h.t, position=torch.where(hit[:, None], wpos, z3),
+                     normal=torch.where(hit[:, None], wn, z3), u=h.u, v=h.v,
+                     prim_id=torch.where(hit, h.prim_id + prim_base[i],
+                                         torch.full_like(h.prim_id, NO_HIT)),
+                     hit_layers=h.hit_layers)
+            if best is None:
+                best = h
+                best_inst = torch.where(hit, i, -1).to(torch.int32)
+                continue
+            closer = hit & (h.t < best.t)
+            best = Hits(*(torch.where(closer[:, None] if a.dim() == 2
+                                      else closer, a, b)
+                          for a, b in zip(
+                              (h.t, h.position, h.normal, h.u, h.v,
+                               h.prim_id, h.hit_layers),
+                              (best.t, best.position, best.normal, best.u,
+                               best.v, best.prim_id, best.hit_layers))))
+            best_inst = torch.where(closer, i, best_inst).to(torch.int32)
+        return best, best_inst

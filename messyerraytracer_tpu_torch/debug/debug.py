@@ -8,10 +8,10 @@ each color is computed in the JAX package's dtype (float64 where its
 numpy widens, float32 elsewhere, IEEE division) and returned as float32.
 
 Per-ray costs come from kernel B1's own per-ray counters on a cluster
-scene (``return_per_ray=True``).  The JAX package reads the frontier
-backend's counters for other scenes; that backend waits for ROADMAP A.10,
-so those scenes fall back to the mean as JAX does for a scene without
-frontier tables, and forcing ``backend="frontier"`` raises.
+scene (``return_per_ray=True``) and from the frontier cast's
+traversal-exact counters (``accel/frontier.py``) on any other
+``RayScene``, as in the JAX package; a scene-like object without frontier
+tables falls back to the mean.
 """
 
 from __future__ import annotations
@@ -139,11 +139,20 @@ def cast_debug_rays(scene, origin, forward, grid_w: int = 16,
         grid=(grid_w, grid_h))
 
 
+def _frontier_per_ray(scene, rays: Rays):
+    """The frontier cast's per-ray counters over ``scene``'s frontier
+    tables."""
+    from ..accel.frontier import cast_rays_frontier
+
+    _, _, _, per_ray = cast_rays_frontier(rays, scene.frontier, scene.tris,
+                                          return_per_ray_stats=True)
+    return per_ray
+
+
 def _per_ray_tri_tests(scene, rays: Rays):
-    """Per-ray triangle-test counts (float32) from kernel B1's own
-    counters when ``scene`` runs the cluster backend; None otherwise (the
-    JAX package's frontier counters wait for ROADMAP A.10, and JAX too
-    returns None for a scene without frontier tables)."""
+    """Per-ray triangle-test counts (float32): kernel B1's own counters
+    when ``scene`` runs the cluster backend, else the frontier cast's;
+    None for a scene without frontier tables (no ``RayScene``)."""
     if (getattr(scene, "backend", None) == "cluster"
             and getattr(scene, "cluster", None) is not None):
         from ..kernels.cluster_v2 import cast_rays_cluster_v2
@@ -151,34 +160,33 @@ def _per_ray_tri_tests(scene, rays: Rays):
         _, _, _, per_ray = cast_rays_cluster_v2(rays, scene.cluster,
                                                 return_per_ray=True)
         return per_ray["tri_tests"].to(torch.float32)
-    return None
+    if not hasattr(scene, "frontier"):
+        return None
+    return _frontier_per_ray(scene, rays)["tri_tests"].to(torch.float32)
 
 
 def per_ray_cost_heatmap(scene, rays: Rays, heatmap_max: float = 64.0,
                          backend: str | None = None):
-    """Per-ray cost colors from kernel B1's per-ray counters.
+    """Per-ray cost colors from per-ray counters.
 
-    Returns (colors (N, 3) f32, tri_tests (N,) f32, node_visits (N,) f32)
-    from the cluster tables (``backend`` "cluster", or None on a cluster
-    scene).  The JAX package reads its frontier counters otherwise; they
-    wait for ROADMAP A.10: ``backend="frontier"`` raises, and a scene
-    without cluster tables gets None."""
-    if backend == "frontier":
-        raise NotImplementedError(
-            "per-ray counts from the frontier backend are not ported yet "
-            "(ROADMAP A.10)")
+    Returns (colors (N, 3) f32, tri_tests (N,) f32, node_visits (N,) f32).
+    ``backend`` "cluster" (or None on a cluster scene) reads kernel B1's
+    counters from the cluster tables; "frontier" (or None on any other
+    scene) the frontier cast's over ``scene.frontier``."""
     use_cluster = backend == "cluster" or (
         backend is None and getattr(scene, "backend", None) == "cluster"
         and getattr(scene, "cluster", None) is not None)
-    if not use_cluster:
-        return None
-    from ..kernels.cluster_v2 import cast_rays_cluster_v2
+    if use_cluster:
+        from ..kernels.cluster_v2 import cast_rays_cluster_v2
 
-    _, _, _, per_ray = cast_rays_cluster_v2(rays, scene.cluster,
-                                            return_per_ray=True)
+        _, _, _, per_ray = cast_rays_cluster_v2(rays, scene.cluster,
+                                                return_per_ray=True)
+        nodes = per_ray["node_visits"]
+    else:
+        per_ray = _frontier_per_ray(scene, rays)
+        nodes = per_ray["nodes_visited"]
     tt = per_ray["tri_tests"].to(torch.float32)
-    nodes = per_ray["node_visits"].to(torch.float32)
-    return _heat_color(_over(tt, heatmap_max)), tt, nodes
+    return _heat_color(_over(tt, heatmap_max)), tt, nodes.to(torch.float32)
 
 
 # the 12 box edges between the 8 corners, corner k = (cx, cy, cz) bits

@@ -430,10 +430,12 @@ def cluster_cast_cuda(origin, direction, t_min, t_max, cs: ClusterScene,
     counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if n == 0:
         return fout, iout, counters
-    err = cuda_library().mrt_cluster_cast(
-        *args, fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
-        None if warp_stats is None else warp_stats.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on its current device: make it the rays' one
+    with torch.cuda.device(dev):
+        err = cuda_library().mrt_cluster_cast(
+            *args, fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
+            None if warp_stats is None else warp_stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cluster_cast kernel launch failed: CUDA error "
                            f"{err}")

@@ -326,19 +326,21 @@ def wide_cast_cuda(origin, direction, t_min, t_max, ws: WideScene,
     if n == 0:
         return fout, iout, counters
     lib = cuda_library()
-    err = lib.mrt_wide_cast(
-        origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-        t_max.data_ptr(), n,
-        ws.node_box.data_ptr(), ws.node_child.data_ptr(),
-        ws.node_axis.data_ptr(), *qptr,
-        ws.leaf_tri.data_ptr(), ws.leaf_count.data_ptr(),
-        ws.slot_layers.data_ptr(),
-        kw, int(bool(quantized)), _as_int32(query_mask),
-        int(bool(any_hit)), kstack, kcap,
-        *(_F32[k] for k in ("det_eps", "inv_eps", "big", "t_miss")),
-        fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
-        None if warp_stats is None else warp_stats.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on its current device: make it the rays' one
+    with torch.cuda.device(dev):
+        err = lib.mrt_wide_cast(
+            origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
+            t_max.data_ptr(), n,
+            ws.node_box.data_ptr(), ws.node_child.data_ptr(),
+            ws.node_axis.data_ptr(), *qptr,
+            ws.leaf_tri.data_ptr(), ws.leaf_count.data_ptr(),
+            ws.slot_layers.data_ptr(),
+            kw, int(bool(quantized)), _as_int32(query_mask),
+            int(bool(any_hit)), kstack, kcap,
+            *(_F32[k] for k in ("det_eps", "inv_eps", "big", "t_miss")),
+            fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
+            None if warp_stats is None else warp_stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wide_cast kernel launch failed: CUDA error "
                            f"{err}")

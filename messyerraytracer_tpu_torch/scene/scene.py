@@ -4,8 +4,18 @@ PyTorch counterpart of ``messyerraytracer_tpu/scene/scene.py``: owns the
 SoA triangle tensors (in BVH slot order), the BVH and the tables of its
 backend, and exposes closest-hit / any-hit casts.  Backends: ``cluster``
 (the default; kernel B1 on CUDA), ``pallas`` (the wide-node tables; kernel
-B4 on CUDA), ``jnp`` (the per-ray binary-BVH traversal in plain PyTorch)
-and ``brute`` (the oracle).
+B4 on CUDA), ``frontier`` / ``frontier_q`` (the level-by-level cast of
+``accel/frontier.py``, exact or 8-bit quantized boxes, plain PyTorch),
+``jnp`` (the per-ray binary-BVH traversal in plain PyTorch) and ``brute``
+(the oracle).
+
+The frontier tables are built lazily on first use and cached in a holder
+that ``dataclasses.replace`` shares between a scene and its copies (the
+dispatcher switches backends that way), each entry used only while the
+scene's BVH and triangles are the ones it was built from (a copy given
+other ones, by ``replace`` or a move to another device, builds them anew).  A
+refit starts a new holder, so that the refit scene's tables do not evict
+those of the scene it came from.
 """
 
 from __future__ import annotations
@@ -17,6 +27,11 @@ import torch
 from torch.profiler import record_function
 
 from ..accel.bvh import BVH, _bvh_host, build_bvh, refit_bvh
+from ..accel.frontier import (
+    FrontierScene,
+    build_frontier_scene,
+    cast_rays_frontier,
+)
 from ..accel.traverse import cast_rays_bvh
 from ..core.brute import any_hit_brute, cast_rays_brute
 from ..core.geometry import aabb_of_triangles, triangle_fields
@@ -44,13 +59,7 @@ from ..kernels.wide import (
     refresh_wide_scene,
 )
 
-BACKENDS = ("cluster", "pallas", "jnp", "brute")
-
-
-def _not_ported(backend: str):
-    return NotImplementedError(
-        f"backend {backend!r} is not ported yet (ROADMAP A.10: secondary "
-        f"backends); ported: {BACKENDS}")
+BACKENDS = ("cluster", "pallas", "frontier", "frontier_q", "jnp", "brute")
 
 
 @dataclasses.dataclass
@@ -67,10 +76,35 @@ class RayScene:
     cluster: ClusterScene | None = None
     use_bvh: bool = True       # False = brute-force validation mode
     backend: str = "cluster"
+    # {quantize: (bvh, tris, FrontierScene)}, see the module docstring
+    _frontier_cache: dict = dataclasses.field(default_factory=dict,
+                                              repr=False)
 
     @property
     def num_tris(self) -> int:
         return self.tris.count
+
+    def _frontier_tables(self, quantize: bool) -> FrontierScene:
+        hit = self._frontier_cache.get(quantize)
+        if hit is None or hit[0] is not self.bvh or hit[1] is not self.tris:
+            hit = (self.bvh, self.tris,
+                   build_frontier_scene(self.bvh, self.tris, quantize))
+            self._frontier_cache[quantize] = hit
+        return hit[2]
+
+    @property
+    def frontier(self) -> FrontierScene:
+        """Frontier-backend tables, built lazily on first use."""
+        return self._frontier_tables(False)
+
+    @property
+    def frontier_q(self) -> FrontierScene:
+        """Quantized (8-bit child boxes) frontier tables, built lazily."""
+        return self._frontier_tables(True)
+
+    def _frontier_for_backend(self) -> FrontierScene:
+        return (self.frontier_q if self.backend == "frontier_q"
+                else self.frontier)
 
     def cast_rays(self, rays: Rays, query_mask=ALL_LAYERS,
                   incoherent: bool = False) -> tuple[Hits, RayStats]:
@@ -80,7 +114,10 @@ class RayScene:
         if not self.use_bvh or self.backend == "brute":
             return cast_rays_brute(rays, self.tris, query_mask)
         if self.backend in ("frontier", "frontier_q"):
-            raise _not_ported(self.backend)
+            hits, stats, _ = cast_rays_frontier(
+                rays, self._frontier_for_backend(), self.tris,
+                int(query_mask))
+            return hits, stats
         if self.backend == "cluster" and self.cluster is not None:
             hits, stats, _ = cast_rays_cluster_v2(rays, self.cluster,
                                                   int(query_mask))
@@ -98,7 +135,10 @@ class RayScene:
         if not self.use_bvh or self.backend == "brute":
             return any_hit_brute(rays, self.tris, query_mask)
         if self.backend in ("frontier", "frontier_q"):
-            raise _not_ported(self.backend)
+            _, _, occluded = cast_rays_frontier(
+                rays, self._frontier_for_backend(), self.tris,
+                int(query_mask), any_hit=True)
+            return occluded
         if self.backend == "cluster" and self.cluster is not None:
             _, _, occluded = cast_rays_cluster_v2(
                 rays, self.cluster, int(query_mask), any_hit=True)
@@ -119,7 +159,8 @@ class RayScene:
         ORIGINAL triangle order; they go to the tables' device, are put in
         slot order by ``tri_order``, the triangles are re-derived, the BVH
         refit and the backend's tables refreshed.  Returns a new scene;
-        the old one stays valid and unchanged."""
+        the old one stays valid and unchanged, and the new one builds
+        its frontier tables anew."""
         dev = self.tris.v0.device
         perm = self.bvh.tri_order.long()
         slot = [torch.as_tensor(v if isinstance(v, torch.Tensor)
@@ -133,8 +174,8 @@ def _refit_slots(scene: RayScene, v0, v1, v2) -> RayScene:
     """``scene`` refit to slot-ordered vertex tensors on its device: the
     triangles re-derived (``triangle_fields``), their boxes taken from
     v0, v0 + e1 and v0 + e2 as the JAX package does, the BVH refit, then
-    the wide and cluster tables refreshed.  Nothing of ``scene`` is
-    written."""
+    the wide and cluster tables refreshed, the frontier tables left to be
+    built anew.  Nothing of ``scene`` is written."""
     with record_function("refit.scene"):
         v0, e1, e2, nrm = triangle_fields(v0, v1, v2)
         tris = Triangles(v0=v0, edge1=e1, edge2=e2, normal=nrm,
@@ -146,8 +187,10 @@ def _refit_slots(scene: RayScene, v0, v1, v2) -> RayScene:
                 if scene.wide is not None else None)
         cluster = (refresh_cluster_scene(scene.cluster, bvh, tris)
                    if scene.cluster is not None else None)
+        # a holder of its own: the refit scene's tables must not evict
+        # those of ``scene``, which stays usable as in the JAX package
         return dataclasses.replace(scene, tris=tris, bvh=bvh, wide=wide,
-                                   cluster=cluster)
+                                   cluster=cluster, _frontier_cache={})
 
 
 def build_scene(v0, v1, v2, layers=None, prim_id=None, use_bvh=True,
@@ -161,7 +204,7 @@ def build_scene(v0, v1, v2, layers=None, prim_id=None, use_bvh=True,
     from .. import _tune_malloc
 
     if backend not in BACKENDS:
-        raise _not_ported(backend)
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if backend == "pallas" and branching not in (2, 8):
         raise ValueError(f"branching must be 2 or 8, got {branching}")
     _tune_malloc()  # lazy, once: large-buffer heap reuse for this build

@@ -11,7 +11,9 @@ boxes could group differently, so the port also stores the grouping it
 used (``*_child_node``, ``*_node_axis``) and restores it: a loaded scene
 has the saved scene's tables and casts its frame bit for bit.  A JAX file
 has no grouping and is collapsed anew, as the JAX package's own load
-rebuilds its cluster tables.
+rebuilds its cluster tables.  A ``frontier`` / ``frontier_q`` scene
+loads, as in JAX, with neither cluster nor wide tables: its frontier
+tables are built from the loaded BVH at its first cast.
 
   * A file the JAX package wrote loads here: the port reads its triangle,
     BVH and level arrays and the wide layout's branching and streaming

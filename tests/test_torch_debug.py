@@ -104,8 +104,8 @@ def test_heatmaps_read_b1_counts(scene):
     """On a cluster scene the heatmaps read B1's per-ray counters: equal to
     the plain version's, colored as JAX's ramp colors them; DRAW_HEATMAP
     and DRAW_OVERHEAT follow the same counts.  A scene without cluster
-    tables gets None (the frontier counters wait for ROADMAP A.10) and
-    forcing the frontier backend raises."""
+    tables, or the frontier backend forced, reads the frontier cast's
+    per-ray counters (held against JAX's in test_torch_frontier.py)."""
     rays = debug_grid_rays(EYE, FWD, *GRID, device="cpu")
     colors, tt, nodes = pdebug.per_ray_cost_heatmap(scene, rays, 40.0)
     _, iout, _ = cluster_cast_plain(rays.origin, rays.direction, rays.t_min,
@@ -127,10 +127,20 @@ def test_heatmaps_read_b1_counts(scene):
     np.testing.assert_array_equal(red, (tt > float(tt.mean())).numpy())
     pallas = build_scene_from_tri_array(small_tris(), backend="pallas",
                                         device="cpu")
-    assert pdebug.per_ray_cost_heatmap(pallas, rays) is None
-    assert pdebug._per_ray_tri_tests(pallas, rays) is None
-    with pytest.raises(NotImplementedError, match="A.10"):
-        pdebug.per_ray_cost_heatmap(scene, rays, backend="frontier")
+    from messyerraytracer_tpu_torch.accel.frontier import (
+        cast_rays_frontier)
+
+    _, _, _, fr = cast_rays_frontier(rays, scene.frontier, scene.tris,
+                                     return_per_ray_stats=True)
+    for s in (pallas, scene):
+        colors, tt, nodes = pdebug.per_ray_cost_heatmap(
+            s, rays, 40.0, backend=None if s is pallas else "frontier")
+        np.testing.assert_array_equal(tt.numpy(), fr["tri_tests"].numpy())
+        np.testing.assert_array_equal(nodes.numpy(),
+                                      fr["nodes_visited"].numpy())
+    np.testing.assert_array_equal(
+        pdebug._per_ray_tri_tests(pallas, rays).numpy(),
+        fr["tri_tests"].numpy())
 
 
 def test_canonical_debug_drive():

@@ -178,14 +178,27 @@ def test_meshes_copy_matches_jax():
 
 
 def test_unported_backends_raise():
+    """Every backend of the JAX package is ported (the frontier pair
+    since A.10): both build and cast, also on a scene switched to them;
+    a backend no package has raises."""
     tris = pmeshes.box()
+    o = np.float32([[0.1, 0.2, 3.0]])
+    d = np.float32([[0.0, 0.0, -1.0]])
+    want, _ = build_scene_from_tri_array(tris, backend="brute",
+                                         device="cpu").cast_rays(
+        port_rays(o, d))
     for backend in ("frontier", "frontier_q"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            build_scene_from_tri_array(tris, backend=backend, device="cpu")
+        scene = build_scene_from_tri_array(tris, backend=backend,
+                                           device="cpu")
+        assert scene.cluster is None and scene.wide is None
+        h, _ = scene.cast_rays(port_rays(o, d))
+        assert torch.equal(h.t, want.t) and torch.equal(h.prim_id,
+                                                        want.prim_id)
     scene = build_scene_from_tri_array(tris, device="cpu")
     scene.backend = "frontier"
-    with pytest.raises(NotImplementedError, match="frontier"):
-        scene.cast_rays(port_rays(np.zeros((1, 3)), np.ones((1, 3))))
+    assert bool(scene.any_hit_rays(port_rays(o, d))[0])
+    with pytest.raises(ValueError, match="backend"):
+        build_scene_from_tri_array(tris, backend="gpu", device="cpu")
 
 
 def test_build_scene_keeps_prim_ids_and_layers():
@@ -247,6 +260,13 @@ def test_imports_and_casts_with_jax_blocked():
         "t.build_tlas()\n"
         "hi = t.cast_rays_instanced(r)[0]\n"
         "assert int(h.hit.sum()) > 0 and int(hi.hit.sum()) > 0\n"
+        "from messyerraytracer_tpu_torch.parallel.dryrun import "
+        "dryrun_multichip\n"
+        "f = build_scene_from_tri_array(meshes.uv_sphere(1.0, 8, 16), "
+        "backend='frontier', device='cpu')\n"
+        "assert int(f.cast_rays(r)[0].hit.sum()) == int(h.hit.sum())\n"
+        "assert int(t.cast_rays_two_level_fast(r)[0].hit.sum()) > 0\n"
+        "dryrun_multichip(2, device='cpu')\n"
         "assert sys.modules['jax'] is None\n"
         "assert not any(m.startswith('messyerraytracer_tpu.') or "
         "m == 'messyerraytracer_tpu' for m in sys.modules)\n"

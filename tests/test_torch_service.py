@@ -117,9 +117,11 @@ def test_backend_chain_equals_jax(services):
             assert_same_dict(port.cast_ray(o, d), want)
         with pytest.raises(ValueError, match="backend"):
             port.set_backend("gpu")
-        port.set_backend("frontier")
-        with pytest.raises(NotImplementedError, match="A.10"):
-            port.cast_ray(o, d)
+        for b in ("frontier", "frontier_q"):
+            port.set_backend(b)
+            jax.set_backend(b)
+            assert port.get_backend() == jax.get_backend() == b
+            assert_same_dict(port.cast_ray(o, d), want)
     finally:
         port.set_backend("auto")
         jax.set_backend("brute")

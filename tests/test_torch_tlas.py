@@ -175,9 +175,18 @@ def test_world_tris_and_flat_twin_match_jax(tlas):
 
 
 def test_unported_tlas_methods_raise(tlas):
-    for call, item in ((lambda: tlas.cast_rays_two_level(None), "A.10"),):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    """Every SceneTLAS method is ported (the two-level casts since A.10,
+    held against JAX in test_torch_tlas_frontier.py): each casts here and
+    agrees with the instanced cast on the hit set."""
+    o, d = rand_rays_np(256, seed=21, extent=7.0)
+    r = port_rays(o, d)
+    hi, _, _, ii = tlas.cast_rays_instanced(r)
+    h2, i2 = tlas.cast_rays_two_level(r)
+    hf, _, _, iff = tlas.cast_rays_two_level_fast(r)
+    for h, i in ((h2, i2), (hf, iff)):
+        assert_parity(h, hi, atol=ANCHOR_ATOL)
+        same = np_of(h.prim_id) == np_of(hi.prim_id)
+        np.testing.assert_array_equal(np_of(i)[same], np_of(ii)[same])
     # the renderer's view is ported (A.8): it casts the instanced tables
     view = tlas.instanced_scene()
     assert isinstance(tlas._ctlas, ClusterTLAS)
