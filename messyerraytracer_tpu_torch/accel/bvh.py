@@ -25,10 +25,12 @@ import sys
 import numpy as np
 import torch
 
+from ..core.geometry import centroid_of_triangles
 from ..core.types import DEFAULT_DEVICE
 
 BVH_BINS = 12
 MAX_LEAF_SIZE = 4
+STACK_DEPTH = 64     # the traversal stack's depth cap (accel/traverse.py)
 
 
 @dataclasses.dataclass(eq=False)
@@ -82,7 +84,7 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
             return _finalize_bvh(*res[:7], device=device)
     tri_min = np.minimum(np.minimum(v0, v1), v2)
     tri_max = np.maximum(np.maximum(v0, v1), v2)
-    centroid = (v0 + v1 + v2) * (1.0 / 3.0)
+    centroid = centroid_of_triangles(v0, v1, v2)
     # as in the JAX package, this still tries the native AABB builder
     return build_bvh_over_aabbs(tri_min, tri_max, centroid, device=device)
 

@@ -313,7 +313,8 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     and rounded to float32 (correctly rounded on the card and the CPU
     alike, which PyTorch's float32 CPU sqrt is not)."""
     sq = v * v
-    nl = torch.sqrt(((sq[:, 0] + sq[:, 1]) + sq[:, 2]).double()).float()
+    n2 = (sq[:, 0] + sq[:, 1]) + sq[:, 2]
+    nl = torch.sqrt(n2.double()).float()  # lint: off: correctly rounded sqrt
     return torch.where(nl > 0, nl, torch.ones_like(nl))[:, None]
 
 

@@ -38,9 +38,8 @@ from ..core.types import (
     safe_inv_direction,
 )
 from ..kernels.cluster_v2 import _as_int32
-from .bvh import BVH, MAX_LEAF_SIZE
+from .bvh import BVH, MAX_LEAF_SIZE, STACK_DEPTH
 
-STACK_DEPTH = 64
 CHUNK = 1 << 18      # rays per pass (bounds the stack's memory)
 
 

@@ -46,7 +46,8 @@ def triangle_fields(v0, v1, v2):
     e2 = v2 - v0
     nrm = _cross(e1, e2)
     sq = nrm * nrm
-    nl = torch.sqrt(((sq[:, 0] + sq[:, 1]) + sq[:, 2]).double()).float()
+    n2 = (sq[:, 0] + sq[:, 1]) + sq[:, 2]
+    nl = torch.sqrt(n2.double()).float()  # lint: off: correctly rounded sqrt
     nl = torch.where(nl > 0.0, nl, torch.ones_like(nl))[:, None]
     return v0, e1, e2, nrm / nl
 
@@ -113,3 +114,8 @@ def aabb_of_triangles(v0, v1, v2):
     mn = torch.minimum(torch.minimum(v0, v1), v2)
     mx = torch.maximum(torch.maximum(v0, v1), v2)
     return mn, mx
+
+
+def centroid_of_triangles(v0, v1, v2):
+    """Triangle centroid for SAH binning: (v0 + v1 + v2) * (1/3)."""
+    return (v0 + v1 + v2) * (1.0 / 3.0)

@@ -254,3 +254,9 @@ class RayStats:
 
     def hit_rate(self) -> float:
         return self._per_ray(self.hits)
+
+
+def zero_stats(device=DEFAULT_DEVICE) -> RayStats:
+    """A ``RayStats`` of zeros on ``device``, stack_drops included."""
+    return RayStats(*(torch.zeros((), dtype=torch.int64, device=device)
+                      for _ in range(5)))

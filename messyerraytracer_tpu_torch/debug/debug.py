@@ -55,8 +55,9 @@ class DebugCastResult:
 def _pick(mask: torch.Tensor, yes, no) -> torch.Tensor:
     """(N, 3) float64 rows: ``yes`` where ``mask``, else ``no``."""
     dev = mask.device
-    yes = torch.as_tensor(yes, dtype=torch.float64, device=dev)
-    no = torch.as_tensor(no, dtype=torch.float64, device=dev)
+    # float64, as the JAX package's numpy widens these colors
+    yes = torch.as_tensor(yes, dtype=torch.float64, device=dev)  # lint: off
+    no = torch.as_tensor(no, dtype=torch.float64, device=dev)  # lint: off
     return torch.where(mask[:, None], yes, no)
 
 
@@ -125,8 +126,9 @@ def cast_debug_rays(scene, origin, forward, grid_w: int = 16,
         # a product need only the low 24 bits of its operands
         h = ((hits.hit_layers.long() & 0xFFFFFF)
              * (2654435761 & 0xFFFFFF)) & 0xFFFFFF
+        # float64, as the JAX package's numpy widens the byte colors
         rgb = torch.stack([h & 0xFF, (h >> 8) & 0xFF, (h >> 16) & 0xFF],
-                          dim=-1).double()
+                          dim=-1).double()  # lint: off
         colors = _over(rgb, 255.0) * hit[:, None]
     else:   # DRAW_RAYS; DRAW_BVH draws ray colors too (see bvh_wireframe)
         colors = _pick(hit, _HIT_GREEN, _MISS_GREY)

@@ -1,7 +1,8 @@
 """Cluster layout — host-side build of the tables the cluster cast reads.
 
-PyTorch counterpart of the host half of ``messyerraytracer_tpu/kernels/
-cluster.py``.  The design is the same two-level structure:
+PyTorch counterpart of the host half of
+``messyerraytracer_tpu/kernels/cluster.py``.  The design is the same
+two-level structure:
 
   * The binary SAH BVH is cut at maximal subtrees of <= T triangles
     ("clusters", T = 32 or 64 by scene density).  The upper tree over the

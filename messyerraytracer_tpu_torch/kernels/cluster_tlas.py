@@ -86,7 +86,7 @@ class ClusterTLAS(ClusterScene):
 
 def _to_mat34(t) -> np.ndarray:
     """Accept a (3,4), (4,4), or (3,3)+implicit-0 transform -> (3,4)."""
-    t = np.asarray(t, np.float64)  # host-side inverse precision
+    t = np.asarray(t, np.float64)  # lint: off: host-side inverse precision
     if t.shape == (4, 4):
         return t[:3, :]
     if t.shape == (3, 4):

@@ -69,9 +69,7 @@ _F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _INT = ctypes.c_int32
 
-# argtypes as in the JAX package's native/__init__.py.  The wide8 table
-# builder emits the JAX package's lane-packed leaf layout, which the port's
-# slice does not read; it is bound so a later slice can call it.
+# argtypes as in the JAX package's native/__init__.py
 _SIGNATURES = {
     "mrt_build_bvh": [_INT, _F32, _F32, _F32, _F32, _F32,
                       _I32, _I32, _I32, _I32, _I32],
@@ -145,3 +143,41 @@ def native_build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray):
     if num <= 0:
         return None
     return tuple(a[:num] for a in outs[:6]) + (outs[6], int(num))
+
+
+def _pad8_rows(entries: int) -> int:
+    rows = -(-entries // 2)               # 2 entries per 128-lane row
+    return max(-(-rows // 8) * 8, 8)      # a multiple of 8 rows
+
+
+def native_build_wide8_tables(amin, amax, lf, cnt, t: int):
+    """C++ 8-wide collapse of a binary BVH's host arrays into the JAX
+    package's lane-packed gather tables (its kernels/wide.py layout: the
+    same FIFO order, tie-breaks and packing).  The port's own wide tables
+    (kernels/wide.py) do not read this layout.  Returns (node_idx,
+    node_const, leaf_idx, leaf_const, leaf_first, leaf_count, nw,
+    num_leaf) or None if the native library is unavailable."""
+    lib = get_native_lib()
+    if lib is None:
+        return None
+    m = int(amin.shape[0])
+    cnt = np.ascontiguousarray(cnt, np.int32)
+    num_internal = int((cnt == 0).sum())
+    num_leaf = int((cnt > 0).sum())
+    nw_cap = max(num_internal, 1) + 1      # bound on the wide node count
+    node_idx = np.empty((_pad8_rows(nw_cap + 1), 128), np.int32)
+    node_const = np.empty(9 * nw_cap + 16, np.float32)
+    leaf_idx = np.empty((_pad8_rows(num_leaf + 1), 128), np.int32)
+    leaf_const = np.empty(num_leaf + 1, np.float32)
+    leaf_first = np.empty(num_leaf, np.int32)
+    leaf_count = np.empty(num_leaf, np.int32)
+    nw = lib.mrt_build_wide8_tables(
+        m, np.ascontiguousarray(amin, np.float32),
+        np.ascontiguousarray(amax, np.float32),
+        np.ascontiguousarray(lf, np.int32), cnt, int(t),
+        node_idx, node_const, leaf_idx, leaf_const, leaf_first, leaf_count)
+    if nw <= 0:
+        return None
+    num_wide = nw + 1
+    return (node_idx[:_pad8_rows(num_wide)], node_const[:9 * num_wide + 2],
+            leaf_idx, leaf_const, leaf_first, leaf_count, int(nw), num_leaf)

@@ -52,6 +52,7 @@ from ..kernels.cluster_v2 import cast_rays_cluster_v2
 from ..kernels.traverse_pallas import cast_rays_wide
 from ..kernels.wide import WideScene
 
+RAY_AXIS = "rays"   # JAX's name of the mesh axis the rays are split over
 TILE = 2048     # the JAX kernel's ray tile (traverse_pallas.py:1355)
 _HIT_FIELDS = ("t", "position", "normal", "u", "v", "prim_id", "hit_layers")
 _STAT_FIELDS = ("rays_cast", "tri_tests", "bvh_nodes_visited", "hits",

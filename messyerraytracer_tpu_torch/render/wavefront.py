@@ -39,6 +39,7 @@ from ..dispatch.morton import (
     unshuffle_hits,
 )
 from .pathtrace import (
+    PI,  # noqa: F401  (the JAX module's public constant, kept in one place)
     SHADOW_EPS,
     bounce_rays,
     dead_unless,
