@@ -18,10 +18,11 @@ written under the package's build directory (``_build/variants``):
   * ``r=x``: today's source with the switch point's r set to x, for each
     x of --r.
 
-Then, on chip_smoke.py's headline scene and block-swizzled 1080p frame,
-for the instanced T=64 tables, the flat T=64 tables and flat tables cut at
-T=32: every variant's outputs equal the old kernel's bit for bit (hits,
-per-ray counters, pops, stack_drops); kernel ms by CUDA events, the
+Then, on the headline scene and block-swizzled 1080p frame of
+messyerraytracer_tpu_torch/bench.py, for the instanced T=64 tables, the
+flat T=64 tables and flat tables cut at T=32: every variant's outputs
+equal the old kernel's bit for bit (hits, per-ray counters, pops,
+stack_drops); kernel ms by CUDA events, the
 variants in turn for --rounds rounds (order reversed every other round),
 median and quartiles; lane occupancy of the cluster phase (wanting lanes
 / (32 x passes)) and cooperative pairs per ray from a counting launch; the
@@ -156,6 +157,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("b1_variants.py needs a CUDA card")
     import chip_smoke as smoke
+    from messyerraytracer_tpu_torch import bench
     from messyerraytracer_tpu_torch.kernels import cluster_v2
     from messyerraytracer_tpu_torch.kernels.cluster import (
         build_cluster_scene)
@@ -163,16 +165,17 @@ def main() -> int:
     from messyerraytracer_tpu_torch.scene.scene import (
         build_scene_from_tri_array)
 
-    card = smoke.card_name_and_power()
+    card = bench.card_name_and_power()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
     libs = build_variants(a.old_src, a.r, os.path.join(BUILD_DIR, "variants"))
-    tlas, _ = smoke.headline_tlas(dev)
+    tlas, _ = bench.headline_tlas(dev)
     flat = build_scene_from_tri_array(tlas._world_tris_np(), device=dev)
     frames = [("instanced T=64", tlas._ctlas), ("flat T=64", flat.cluster),
               ("flat T=32", build_cluster_scene(flat.bvh, flat.tris,
                                                 tcap=32))]
-    rays = smoke.frame_rays(dev)
+    rays = bench.block_swizzled_frame_rays(*bench.FRAME,
+                                           bench.headline_camera(), dev)
     n = rays.count
     result = {"card": card, "rays": n, "frames": {}}
     for fname, cs in frames:

@@ -104,7 +104,18 @@ wide_cast.cu; nvcc -> ctypes), then:
      CPU (integers exact, floats within rtol 1e-5, images by
      ``IMAGE_RULE``); B1 held bit for bit against its plain version on
      the layer demo's two masked casts and on a bounce wave of the
-     Cornell box with its dead rays.
+     Cornell box with its dead rays;
+  9. the port's headline benchmark (``messyerraytracer_tpu_torch/
+     bench.py``, the JAX package's bench.py on the port) at full size:
+     ``bench.run`` prints bench.py's JSON line from the card (the 1M
+     instanced headline and its flat twin at 1920x1080, the 99K and 2M
+     flat tiers at 1024x768, 524,288 incoherent rays, 640x480 path-traced
+     frames), checked: every parity flag true, no stack drop at 2M, 215
+     instances and 1,000,736 world triangles, bench.py's keys less the
+     TPU-only ones; B1's launches counted from that run; B1 held bit for
+     bit against its plain version on the 99K frame, and the 99K
+     path-traced frame's wave rays equal with B1 and with its plain
+     version.
 
 Every number is printed beside the card's name and power limit.  The last
 two lines are the kernel summary and the result, both JSON.  Exits
@@ -117,15 +128,25 @@ from __future__ import annotations
 import contextlib
 import io
 import json
-import subprocess
+import math
 import sys
 import threading
 import time
 
 import numpy as np
 
+# fails here, printing nothing, outside a checkout of the repo
+from messyerraytracer_tpu_torch.bench import (
+    block_swizzled_frame_rays,
+    card_name_and_power,
+    headline_camera,
+    headline_tlas,
+)
+
 FRAME = (1920, 1080)
 SLICE = 262_144        # rays of the frame held kernel == plain per layout
+HEADLINE_INSTANCES = 215
+HEADLINE_WORLD_TRIS = 1_000_736
 
 # H100 SXM peaks for the bound (NVIDIA data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -139,14 +160,6 @@ SLAB_OPS = 25          # one child box: 6 sub, 6 mul, 6 min/max, 4 combine,
 #                        3 compare
 MT_OPS = 55            # one classic Moller-Trumbore triangle test
 PLUCKER_OPS = 46       # one anchored Plucker triangle test (B1)
-
-
-def card_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def check(ok: bool, what: str) -> None:
@@ -432,73 +445,6 @@ def phase_kernel_vs_plain(card: str, device) -> None:
           f"{prim.numel()} hits, all on the lower copy", flush=True)
 
 
-def headline_tlas(device):
-    """The bench.py headline scene (bench.py:122-167), through the port."""
-    from messyerraytracer_tpu_torch.accel.tlas import SceneTLAS
-    from messyerraytracer_tpu_torch.utils import meshes
-
-    terrain = meshes.plane(20.0, y=0.0, subdiv=100)
-    terrain[:, :, 1] = (np.sin(terrain[:, :, 0] * 0.9)
-                        * np.cos(terrain[:, :, 2] * 0.8))
-    sphere_hi = meshes.uv_sphere(1.6, 64, 64)
-    sphere_lo = meshes.uv_sphere(1.0, 32, 32)
-    rock = meshes.box((1.4, 1.0, 1.2))
-    rng = np.random.default_rng(11)
-
-    def xf(tx, ty, tz, s=1.0):
-        m = np.eye(4, dtype=np.float32)
-        m[0, 0] = m[1, 1] = m[2, 2] = s
-        m[:3, 3] = (tx, ty, tz)
-        return m
-
-    times = {}
-    t0 = time.time()
-    tlas = SceneTLAS(backend="cluster", device=device)
-    m_ter = tlas.add_mesh(terrain)
-    m_shi = tlas.add_mesh(sphere_hi)
-    m_slo = tlas.add_mesh(sphere_lo)
-    m_rock = tlas.add_mesh(rock)
-    times["meshes"] = time.time() - t0
-    for gx in range(4):
-        for gz in range(4):
-            tlas.add_instance(m_ter, xf((gx - 1.5) * 20, 0.0,
-                                        (gz - 1.5) * 20))
-    for _ in range(60):
-        c = rng.uniform(-35, 35, 2)
-        tlas.add_instance(m_shi, xf(c[0], rng.uniform(1.5, 4.0), c[1],
-                                    s=rng.uniform(0.6, 1.4)))
-    for _ in range(99):
-        c = rng.uniform(-35, 35, 2)
-        tlas.add_instance(m_slo, xf(c[0], rng.uniform(0.8, 2.5), c[1],
-                                    s=rng.uniform(0.5, 1.5)))
-    for _ in range(40):
-        c = rng.uniform(-35, 35, 2)
-        tlas.add_instance(m_rock, xf(c[0], 0.5, c[1]))
-    t1 = time.time()
-    tlas.build_tlas()
-    times["flatten"] = time.time() - t1
-    t1 = time.time()
-    tlas.build_instanced()
-    times["instanced"] = time.time() - t1
-    times["build_tlas_s"] = time.time() - t0
-    return tlas, times
-
-
-def frame_rays(device):
-    """The headline 1920x1080 frame, block-swizzled (bench.py:34-45)."""
-    import torch
-
-    import messyerraytracer_tpu_torch as mrt
-    from messyerraytracer_tpu_torch.dispatch.morton import (
-        raster_block_permutation)
-
-    w, h = FRAME
-    cam = mrt.CameraParams.look_at((0, 26, 55), (0, 1, 0), fov_degrees=60.0)
-    perm = torch.as_tensor(raster_block_permutation(w, h, 32),
-                           device=device).long()
-    return mrt.generate_rays(cam, w, h, device=device).take(perm)
-
-
 def cluster_bound(cs, rays, fout, iout, counters):
     """B1's bound on this run's inputs: rays, scene tables and outputs
     moved once; slab tests of 8 children per pop and one Plucker test per
@@ -550,11 +496,13 @@ def phase_main_path(card: str, device):
     t0 = time.time()
     flat = build_scene_from_tri_array(world_tris, device=device)
     times["build_1m_flat_s"] = time.time() - t0
-    rays = frame_rays(device)
+    rays = block_swizzled_frame_rays(*FRAME, headline_camera(), device)
     n = rays.count
     print(f"[{card}] scene: {len(tlas.instances)} instances, "
           f"{world_tris.shape[0]} world triangles, {n} rays; build s "
           f"{json.dumps(times)}", flush=True)
+    check((len(tlas.instances), world_tris.shape[0])
+          == (HEADLINE_INSTANCES, HEADLINE_WORLD_TRIS), "the headline scene")
 
     # ---- the main path's own run: counts reset just before, read after
     cluster_cast_cuda.launches = 0
@@ -614,7 +562,7 @@ def phase_main_path(card: str, device):
             k.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
     k["library_ms"] = None       # no single PyTorch call casts over a BVH
     ctx = {"world_tris": world_tris, "rays": rays, "sub": sub, "hb": hb,
-           "tlas": tlas, "flat": flat}
+           "tlas": tlas, "flat": flat, "instanced_ms": dt_i}
     return k, ctx
 
 
@@ -1177,7 +1125,7 @@ def phase_path_tracers(card: str, device, ctx: dict) -> int:
         WavefrontPathTracer)
 
     lights, env, mats = shading(device)
-    rays = frame_rays(device)
+    rays = block_swizzled_frame_rays(*FRAME, headline_camera(), device)
     inst = ctx["tlas"].instanced_scene()
     total = 0
     for name, scene, cs, bounds in (
@@ -2336,15 +2284,157 @@ def phase_multi(card: str, device, ctx: dict) -> dict:
     return {"b1": b1 + p["b1"], "b4": p["b4"]}
 
 
+@contextlib.contextmanager
+def plain_b1():
+    """Route every cluster cast to B1's plain version, on any device."""
+    from messyerraytracer_tpu_torch.kernels import cluster_v2
+
+    routed = cluster_v2.cluster_cast
+
+    def plain(rays, cs, query_mask=-1, any_hit=False, kstack=None):
+        return cluster_v2.cluster_cast_plain(
+            rays.origin, rays.direction, rays.t_min, rays.t_max, cs,
+            query_mask, any_hit, kstack, chunk=1 << 20)
+
+    cluster_v2.cluster_cast = plain
+    try:
+        yield
+    finally:
+        cluster_v2.cluster_cast = routed
+
+
+def phase_bench(card: str, device, ctx: dict) -> int:
+    """Phase 9: the port's headline benchmark
+    (``messyerraytracer_tpu_torch/bench.py``, the counterpart of the JAX
+    package's bench.py) at full size through ``bench.run``: its JSON line
+    on a progress line; every parity flag true, no stack drop at 2M, the
+    headline scene's size, the key set and finite numbers checked; its
+    headline frame beside phase 2's instanced cast.  Then B1 held bit for
+    bit against its plain version on every B1 tier's own rays (the 2M and
+    99K 1024x768 frames, the incoherent batch in the dispatcher's sorted
+    order), both 640x480 path-traced frames traced with B1 and with its
+    plain version (wave rays equal), and the 99K one timed with its
+    coherence sort carried, per wave and off.  Returns B1's launches of
+    ``bench.run``."""
+    import torch
+
+    from messyerraytracer_tpu_torch import bench
+    from messyerraytracer_tpu_torch.dispatch.dispatcher import RayDispatcher
+    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
+        cluster_cast_cuda)
+    from messyerraytracer_tpu_torch.render.wavefront import (
+        WavefrontPathTracer)
+    from messyerraytracer_tpu_torch.scene.scene import (
+        build_scene_from_tri_array)
+
+    # ---- the bench's own run: counts reset just before, read after
+    cluster_cast_cuda.launches = 0
+    t0 = time.time()
+    out = bench.run(device)
+    torch.cuda.synchronize()
+    launches = cluster_cast_cuda.launches
+    e = out["extra"]
+    print(f"[{card}] phase 9 bench.run {time.time() - t0} s, B1 launches "
+          f"{launches}; line: {json.dumps(out)}", flush=True)
+    check(list(e) == list(bench.EXTRA_KEYS), "bench keys == EXTRA_KEYS")
+    check((out["metric"], out["unit"]) == (bench.METRIC, bench.UNIT),
+          "bench metric and unit")
+    flags = {k: v for k, v in e.items() if k.startswith("parity_")}
+    check(len(flags) == 4 and all(v is True for v in flags.values()),
+          f"bench parity flags {flags}")
+    check(e["stack_drops_2m"] == 0, "bench stack_drops_2m == 0")
+    check((e["instances"], e["tlas_world_tris"])
+          == (HEADLINE_INSTANCES, HEADLINE_WORLD_TRIS), "bench headline")
+    check(launches > 0, "bench launched kernel B1")
+    check(device.type != "cuda" or e["device"] == card, "bench device")
+    numbers = [out["value"], out["vs_baseline"],
+               *e["build_phase_s"].values(),
+               *(v for v in e.values() if isinstance(v, (int, float)))]
+    check(all(math.isfinite(v) for v in numbers), "bench numbers finite")
+    print(f"[{card}] phase 9 headline frame {e['frame_ms']} ms (host clock, "
+          f"bench) against phase 2's {ctx['instanced_ms']} ms (CUDA "
+          f"events): ratio {e['frame_ms'] / ctx['instanced_ms']}",
+          flush=True)
+
+    # ---- B1 against its plain version on each B1 tier's own rays
+    def held(what, rays, cs):
+        err, plain_ms, st = compare_kernel_plain(rays, cs, chunk=1 << 20)
+        print(f"[{card}] phase 9 B1 on {what} ({rays.count} rays, "
+              f"T={cs.tcap}, stack_need {cs.stack_need}): kernel == plain, "
+              f"max_abs_err {err}, plain {plain_ms} ms; lane occupancy "
+              f"{occupancy(st)}", flush=True)
+
+    scene2m = build_scene_from_tri_array(bench.tris_2m(), device=device)
+    held("the 2M frame", block_swizzled_frame_rays(
+        *bench.FRAME_2M, bench.camera_99k(), device), scene2m.cluster)
+    del scene2m
+    scene = build_scene_from_tri_array(bench.tris_99k(), device=device)
+    held("the 99K frame", block_swizzled_frame_rays(
+        *bench.FRAME_99K, bench.camera_99k(), device), scene.cluster)
+    srt, _ = RayDispatcher(scene)._sorted(bench.incoherent_rays(device))
+    held("the incoherent batch in the dispatcher's sorted order", srt,
+         scene.cluster)
+
+    # ---- both path-traced frames traced with B1 and with its plain version
+    tlas, _ = bench.headline_tlas(device)
+    shading = bench.pt_shading(device)
+    pts = {"99K": (WavefrontPathTracer(scene, *shading), bench.camera_99k()),
+           "instanced": (WavefrontPathTracer(tlas.instanced_scene(),
+                                             *shading),
+                         bench.headline_camera())}
+    for name, (pt, cam) in pts.items():
+        prays = block_swizzled_frame_rays(*bench.PT_FRAME, cam, device)
+
+        def frame():
+            return pt.trace_frame(prays, bench.PT_BOUNCES, bench.PT_SAMPLE,
+                                  with_counts=True)
+
+        img, wave = frame()
+        with plain_b1():
+            img_p, wave_p = frame()
+        diff = float((img - img_p).abs().max())
+        print(f"[{card}] phase 9 PT {name} frame: wave rays {int(wave)} with "
+              f"B1, {int(wave_p)} with its plain version; max_abs_err {diff}",
+              flush=True)
+        check(int(wave) == int(wave_p), f"PT {name} wave rays: B1 == plain")
+        check(name != "99K" or int(wave) == e["pt_wave_rays"],
+              "PT 99K wave rays == bench's")
+        check(diff < 1e-4, f"PT {name} frame B1 against plain, max |diff| "
+                           f"{diff}")
+
+    # ---- the 99K PT frame's coherence sort: carried, per wave, none; the
+    # same frame, in turns (A B C C B A), host clock as the bench
+    pt, bounds = pts["99K"][0], pts["99K"][0].bounds
+    prays = block_swizzled_frame_rays(*bench.PT_FRAME, bench.camera_99k(),
+                                      device)
+    variants = {"carried": (True, bounds), "per wave": (False, bounds),
+                "unsorted": (False, None)}
+    secs = {k: 0.0 for k in variants}
+    outs = {}
+    for name in [*variants, *reversed(variants)]:
+        carried, pt.bounds = variants[name]
+        dt, outs[name] = bench.timed(
+            lambda: pt._trace_frame_stages(
+                prays, bench.PT_BOUNCES, bench.PT_SAMPLE, with_counts=True,
+                carried=carried), bench.PT_ITERS, device)
+        secs[name] += dt / 2
+    pt.bounds = bounds
+    for name, (img, wave) in outs.items():
+        diff = float((img - outs["carried"][0]).abs().max())
+        check(int(wave) == int(outs["carried"][1]) and diff < 1e-4,
+              f"PT 99K {name} == carried (max |diff| {diff})")
+    print(f"[{card}] phase 9 PT 99K frame by coherence sort (ms a frame, "
+          f"host clock, {bench.PT_ITERS} x 2 calls each): "
+          f"{json.dumps({k: v * 1e3 for k, v in secs.items()})}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card "
                          "(torch.cuda.is_available() is false)")
-    # fails here, before printing anything, outside a checkout of the repo
-    import messyerraytracer_tpu_torch  # noqa: F401
-
     t_start = time.time()
     card = card_name_and_power()
     print(f"card: {card}", flush=True)
@@ -2375,7 +2465,11 @@ def main() -> int:
     p8 = phase_gallery(card, device)
     print(f"[{card}] phase 8 (demo gallery) {time.time() - t8} s; B1 "
           f"launches {p8}", flush=True)
-    k1["launches"] += p5["b1"] + p6["b1"] + p7["b1"] + p8
+    t9 = time.time()
+    p9 = phase_bench(card, device, ctx)
+    print(f"[{card}] phase 9 (the port's bench) {time.time() - t9} s; B1 "
+          f"launches {p9}", flush=True)
+    k1["launches"] += p5["b1"] + p6["b1"] + p7["b1"] + p8 + p9
     k4["launches"] += p5["b4"] + p6["b4"] + p7["b4"]
     print(f"[{card}] chip_smoke total {time.time() - t_start} s",
           flush=True)

@@ -2,6 +2,7 @@
 the instanced TLAS API, ray generation, and the package's independence
 from JAX."""
 
+import ast
 import os
 import re
 import subprocess
@@ -217,27 +218,125 @@ def test_build_scene_keeps_prim_ids_and_layers():
     assert int(h.hit_layers[0]) == lay[k]
 
 
-def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import jax|from jax|import messyerraytracer_tpu"
-                     r"\b(?!_torch)|from messyerraytracer_tpu\b(?!_torch))",
-                     re.M)
-    # no path into the JAX package either: a string literal naming it (as
-    # "messyerraytracer_tpu" in os.path.join, or "messyerraytracer_tpu/..."
-    # in a path or an #include); docstrings and comments may cite its files
-    path = re.compile(r"[\"'][^\"'\n]*\bmessyerraytracer_tpu\b")
-    seen = set()
-    for root, _, files in os.walk(PKG):
+JAX_NAME = "messyerraytracer_tpu"
+# the one exception: the port's lint spells the JAX package's name out, as
+# a match pattern (tools/lint.py), and reads it only in these places
+LINT = os.path.join("tools", "lint.py")
+LINT_LINE = f'JAX_PKG_NAME = "{JAX_NAME}"'
+LINT_USES = (LINT_LINE, "re.escape(JAX_PKG_NAME)",
+             'JAX_MODULES = ("jax", "jaxlib", JAX_PKG_NAME)')
+# a string literal naming the JAX package, as a path or an #include would
+PATH_RE = re.compile(r"[\"'][^\"'\n]*\bmessyerraytracer_tpu\b(?!_torch)")
+# the name built from pieces: the port's suffix stripped off its own name,
+# or the head of the name as a literal of its own
+PIECES_RE = re.compile(r"removesuffix\(|[\"']_torch[\"']"
+                       r"|[\"']messyerraytracer_?[\"']")
+
+
+def _imports(src: str) -> list:
+    """The modules of jax, jaxlib or the JAX package a module imports."""
+    bad = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        bad += [f"line {node.lineno}: imports {m}" for m in mods
+                if m.split(".")[0] in ("jax", "jaxlib", JAX_NAME)]
+    return bad
+
+
+def jax_refs(pkg) -> dict:
+    """{file: [offences]} for every way a file of the port's package at
+    ``pkg`` imports jax or the JAX package, names the JAX package in a
+    string literal or builds its name from pieces.  Docstrings and comments
+    may cite its files.  Dynamic imports are caught at run time by
+    ``test_imports_and_casts_with_jax_blocked``."""
+    found, seen = {}, set()
+    for root, _, files in os.walk(pkg):
         for f in files:
             ext = os.path.splitext(f)[1]
             if ext not in (".py", ".cpp", ".cu"):
                 continue
             seen.add(ext)
+            rel = os.path.relpath(os.path.join(root, f), pkg)
             with open(os.path.join(root, f)) as fh:
                 src = fh.read()
-            assert not path.search(src), f
+            text, bad = src, []
+            if rel == LINT:
+                if src.count(LINT_LINE) != 1:
+                    bad.append("JAX_PKG_NAME is not assigned its name once")
+                for use in LINT_USES:
+                    text = text.replace(use, "", 1)
+                if "JAX_PKG_NAME" in text:
+                    bad.append("JAX_PKG_NAME used other than as a match "
+                               "pattern")
+            bad += [f"string literal {m.group(0)!r}"
+                    for m in PATH_RE.finditer(text)]
+            bad += [f"name built from pieces: {m.group(0)!r}"
+                    for m in PIECES_RE.finditer(src)]
             if ext == ".py":
-                assert not pat.search(src), f
+                bad += _imports(src)
+            if bad:
+                found[rel] = bad
     assert seen == {".py", ".cpp", ".cu"}
+    return found
+
+
+def test_port_sources_never_import_jax():
+    assert jax_refs(PKG) == {}
+
+
+# each way around the guard, planted in a copy of the package: (file,
+# text appended to it)
+WAYS_OUT = {
+    "import jax": ("core/x.py", "import jax\n"),
+    "import among others": ("core/x.py", "import os, jax\n"),
+    "import the JAX package": ("core/x.py", "import messyerraytracer_tpu\n"),
+    "from the JAX package": ("core/x.py",
+                             "from messyerraytracer_tpu.core import brute\n"),
+    "path literal": ("core/x.py",
+                     "P = os.path.join(ROOT, 'messyerraytracer_tpu')\n"),
+    "adjacent literals": ("core/x.py",
+                          "M = importlib.import_module('messyerraytracer_' "
+                          "'tpu')\n"),
+    "concatenation": ("core/x.py", "M = 'messyerraytracer' + '_tpu'\n"),
+    "join": ("core/x.py", "M = '_'.join(['messyerraytracer', 'tpu'])\n"),
+    "format": ("core/x.py", "M = '{}_tpu'.format('messyerraytracer')\n"),
+    "removesuffix": ("core/x.py",
+                     "M = 'messyerraytracer_tpu_torch'.removesuffix("
+                     "'_torch')\n"),
+    "replace": ("core/x.py", "M = PKG.replace('_torch', '')\n"),
+    "suffix in a name": ("core/x.py", "S = '_torch'\nM = PKG.split(S)[0]\n"),
+    "lint: the old trick": ("tools/lint.py",
+                            "J = PKG_NAME.removesuffix(SUFFIX)\n"),
+    "lint: the name as a path": ("tools/lint.py",
+                                 "D = ROOT / JAX_PKG_NAME\n"),
+    "lint: a second literal": ("tools/lint.py",
+                               "D = ROOT / 'messyerraytracer_tpu'\n"),
+    "lint: a second assignment": ("tools/lint.py", LINT_LINE + "\n"),
+    "cuda include": ("kernels/csrc/cluster_cast.cu",
+                     '#include "messyerraytracer_tpu/kernels/x.h"\n'),
+    "c++ path": ("native/sah_builder.cpp",
+                 'static const char *p = "messyerraytracer_tpu/native";\n'),
+}
+
+
+@pytest.mark.parametrize("way", sorted(WAYS_OUT))
+def test_the_guard_refuses_each_way_out(way, tmp_path):
+    import shutil
+
+    rel, text = WAYS_OUT[way]
+    dst = tmp_path / "pkg"
+    shutil.copytree(PKG, dst, ignore=shutil.ignore_patterns(
+        "_build", "__pycache__"))
+    assert jax_refs(dst) == {}
+    f = dst / rel
+    f.write_text((f.read_text() if f.exists() else "") + text)
+    found = jax_refs(dst)
+    assert list(found) == [os.path.normpath(rel)], found
 
 
 def test_imports_and_casts_with_jax_blocked():
@@ -267,6 +366,7 @@ def test_imports_and_casts_with_jax_blocked():
         "assert int(f.cast_rays(r)[0].hit.sum()) == int(h.hit.sum())\n"
         "assert int(t.cast_rays_two_level_fast(r)[0].hit.sum()) > 0\n"
         "dryrun_multichip(2, device='cpu')\n"
+        "from messyerraytracer_tpu_torch import bench  # noqa: F401\n"
         "assert sys.modules['jax'] is None\n"
         "assert not any(m.startswith('messyerraytracer_tpu.') or "
         "m == 'messyerraytracer_tpu' for m in sys.modules)\n"
