@@ -791,16 +791,15 @@ def anchor_atol(scene) -> float:
     return float(ANCHOR_ULPS * np.finfo(np.float32).eps * big)
 
 
-def device_split(fn, ranges, launch_ranges=None) -> dict:
+def device_split(fn, ranges) -> dict:
     """One more call of ``fn`` (after a warm-up) under torch.profiler.
     Returns ms: the call's wall time (CUDA events, under the profiler), the
     device's busy time (the union of its kernels and copies) and idle share,
     the kernels B1 and B4 by name (each launch, in launch order), for each
     ``torch.profiler`` range named in ``ranges`` the device time of the
-    kernels launched inside it, and the rest of the busy time.  B1 and B4
-    are launched through ctypes, which the profiler does not link to the
-    range they run in: each launch's time is added to the range that
-    ``launch_ranges`` names for it in launch order, else to ``cast``."""
+    kernels launched inside it (B1 and B4 included: the profiler links each
+    launch to the port's span around it, ``b1.launch`` or ``b4.launch``),
+    and the rest of the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -841,10 +840,6 @@ def device_split(fn, ranges, launch_ranges=None) -> dict:
         split[name] = sum(e.device_time_total for e in events
                           if e.name == name
                           and e.device_type == DeviceType.CPU) / 1e3
-    for i, (ms, _) in enumerate(launches):
-        name = launch_ranges[i] if launch_ranges else "cast"
-        if name in split:
-            split[name] += ms
     split["rest"] = split["device busy"] - sum(split[n] for n in ranges)
     return split
 
@@ -1100,8 +1095,7 @@ def phase_renderer(card: str, device, ctx: dict) -> int:
 
     # ---- one profiled COLOR frame split by stage; frame times, CUDA events
     split = device_split(color.render_frame, (
-        "render.raygen", "render.trace", "render.shadows", "render.shade"),
-        launch_ranges=("render.trace", "render.shadows"))
+        "render.raygen", "render.trace", "render.shadows", "render.shade"))
     frames = {"COLOR frame": cuda_ms(color.render_frame, 3),
               "4 AOVs frame": cuda_ms(debug.render_frame, 3)}
     print(f"[{card}] phase 5b one COLOR frame by stage (device ms, "

@@ -27,6 +27,7 @@ import torch
 
 from ..core.geometry import centroid_of_triangles
 from ..core.types import DEFAULT_DEVICE
+from ..utils.trace import span
 
 BVH_BINS = 12
 MAX_LEAF_SIZE = 4
@@ -295,23 +296,30 @@ def refit_bvh(bvh: BVH, tri_min: torch.Tensor,
     ``tri_order``).  The topology is unchanged; a new ``BVH`` is returned
     (``host=None``) and no tensor of the old one is written."""
     m, dev = bvh.num_nodes, bvh.aabb_min.device
-    offs = torch.arange(MAX_LEAF_SIZE, dtype=torch.int32, device=dev)
-    window = (bvh.left_first[:, None] + offs).clamp(0, bvh.num_tris - 1)
-    valid = (offs < bvh.count[:, None])[..., None]            # (M, k, 1)
-    inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
-    w = window.long()
-    leaf_min = torch.where(valid, tri_min[w], inf).amin(dim=1)
-    leaf_max = torch.where(valid, tri_max[w], -inf).amax(dim=1)
-    is_leaf = (bvh.count > 0)[:, None]
-    amin = torch.where(is_leaf, leaf_min, inf)
-    amax = torch.where(is_leaf, leaf_max, -inf)
+    with span("bvh.leaves"):
+        offs = torch.arange(MAX_LEAF_SIZE, dtype=torch.int32, device=dev)
+        window = (bvh.left_first[:, None] + offs).clamp(0, bvh.num_tris - 1)
+        valid = (offs < bvh.count[:, None])[..., None]        # (M, k, 1)
+        inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+        w = window.long()
+    with span("bvh.leaves"):
+        leaf_min = torch.where(valid, tri_min[w], inf).amin(dim=1)
+        leaf_max = torch.where(valid, tri_max[w], -inf).amax(dim=1)
+        is_leaf = (bvh.count > 0)[:, None]
+        amin = torch.where(is_leaf, leaf_min, inf)
+        amax = torch.where(is_leaf, leaf_max, -inf)
     for li in reversed(bvh.levels):
-        li = li.long()
-        internal = (bvh.count[li] == 0)[:, None]
-        lc = (li + 1).clamp_max(m - 1)
-        rc = bvh.left_first[li].long().clamp(0, m - 1)
-        amin[li] = torch.where(internal, torch.minimum(amin[lc], amin[rc]),
-                               amin[li])
-        amax[li] = torch.where(internal, torch.maximum(amax[lc], amax[rc]),
-                               amax[li])
+        with span("bvh.level"):
+            li = li.long()
+            internal = (bvh.count[li] == 0)[:, None]
+            lc = (li + 1).clamp_max(m - 1)
+            rc = bvh.left_first[li].long().clamp(0, m - 1)
+        with span("bvh.min"):
+            amin[li] = torch.where(internal,
+                                   torch.minimum(amin[lc], amin[rc]),
+                                   amin[li])
+        with span("bvh.max"):
+            amax[li] = torch.where(internal,
+                                   torch.maximum(amax[lc], amax[rc]),
+                                   amax[li])
     return dataclasses.replace(bvh, aabb_min=amin, aabb_max=amax, host=None)

@@ -36,7 +36,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..accel.bvh import _bvh_host
 from ..core.types import (
@@ -53,6 +52,7 @@ from ..core.types import (
 )
 from ..kernels.cluster_v2 import _as_int32
 from ..kernels.wide import _collapse8
+from ..utils.trace import span
 
 _BIG = 3.0e38
 _IMAX = np.iinfo(np.int32).max
@@ -491,7 +491,7 @@ def cast_rays_frontier(
     package's cap factors are accepted and ignored (the lists are exact
     here).  The cast runs inside the profiler range ``cast``."""
     del pair_cap_factor, leaf_cap_factor
-    with record_function("cast"):
+    with span("cast"):
         best_t, best_slot, best_u, best_v, nodes, tt = _cast_frontier(
             rays, fs, tris.layers, query_mask, any_hit)
         found = best_slot != _IMAX

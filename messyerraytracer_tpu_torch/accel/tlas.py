@@ -29,12 +29,12 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..accel.bvh import _bvh_host
 from ..accel.frontier import _norm
 from ..core.types import ALL_LAYERS, DEFAULT_DEVICE, NO_HIT, Hits, Rays
 from ..scene.scene import RayScene, _refit_slots, build_scene
+from ..utils.trace import span
 
 
 def _to_mat4(transform) -> np.ndarray:
@@ -290,14 +290,16 @@ class SceneTLAS:
                             any_hit: bool = False):
         """Frame-scale instanced cast on kernel B1.  Returns (hits, stats,
         occluded, instance_id); prim ids are in the flattened numbering,
-        so results compare directly with ``cast_rays``."""
+        so results compare directly with ``cast_rays``.  Runs inside the
+        span ``tlas.cast``."""
         from ..kernels.cluster_v2 import cast_rays_cluster_tlas_v2
 
         if self._ctlas is None:
             self.build_instanced()
-        return cast_rays_cluster_tlas_v2(rays, self._ctlas,
-                                         query_mask=query_mask,
-                                         any_hit=any_hit)
+        with span("tlas.cast"):
+            return cast_rays_cluster_tlas_v2(rays, self._ctlas,
+                                             query_mask=query_mask,
+                                             any_hit=any_hit)
 
     def instanced_scene(self) -> InstancedScene:
         """Scene-like view over the instanced cluster tables for renderers
@@ -317,16 +319,18 @@ class SceneTLAS:
     def set_transform(self, instance_id: int, transform) -> None:
         """Move one instance.  The instanced tables, if built, are refit
         at once on their device (``set_transforms``); an already-built
-        flat twin keeps the old transforms until ``refit_tlas``."""
-        inst = self.instances[instance_id]
-        self.instances[instance_id] = BLASInstance.create(
-            inst.blas_id, _to_mat4(transform), inst.layers)
-        self._two_level = None
-        if self._ctlas is not None:
-            from ..kernels.cluster_tlas import set_transforms
+        flat twin keeps the old transforms until ``refit_tlas``.  Runs
+        inside the span ``tlas.set_transform``."""
+        from ..kernels.cluster_tlas import set_transforms
 
-            self._ctlas = set_transforms(
-                self._ctlas, [i.transform for i in self.instances])
+        with span("tlas.set_transform"):
+            inst = self.instances[instance_id]
+            self.instances[instance_id] = BLASInstance.create(
+                inst.blas_id, _to_mat4(transform), inst.layers)
+            self._two_level = None
+            if self._ctlas is not None:
+                self._ctlas = set_transforms(
+                    self._ctlas, [i.transform for i in self.instances])
 
     def refit_tlas(self) -> None:
         """Bring the flat twin to the current transforms on its device:
@@ -334,7 +338,7 @@ class SceneTLAS:
         multiply-adds), then the scene refit (triangles re-derived, BVH
         refit, tables refreshed).  Topology unchanged."""
         self._ensure_flat()
-        with record_function("refit.tlas"):
+        with span("refit.tlas"):
             self._flat = _refit_slots(
                 self._flat, *_world_slots(self._obj_slots, self._slot_inst,
                                           self._transforms_tensor()))

@@ -27,7 +27,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.types import (
     ALL_LAYERS,
@@ -40,6 +39,7 @@ from ..core.types import (
     safe_inv_direction,
 )
 from ..kernels.cluster_v2 import _as_int32
+from ..utils.trace import span
 from .bvh import _bvh_host, build_bvh_over_aabbs
 from .frontier import (
     _BIG,
@@ -308,7 +308,7 @@ def cast_rays_tlas(rays: Rays, ft: FrontierTLAS,
     on a miss.  The JAX package's cap factors are accepted and
     ignored.  The cast runs inside the profiler range ``cast``."""
     del inst_cap_factor, pair_cap_factor, leaf_cap_factor
-    with record_function("cast"):
+    with span("cast"):
         return _cast_tlas(rays, ft, query_mask, any_hit)
 
 

@@ -18,11 +18,19 @@ asynchronously on the current CUDA stream; ``submit`` waits for its result
 (wall-clock timed), ``submit_async`` records a CUDA event per ticket and
 ``collect_async`` waits on it.  On CPU tensors the work is done when the
 call returns, and both waits are no-ops.
+
+Every request (``submit``, ``submit_async``, and so ``cast_ray``) gets a
+request id, unique in the process and increasing, returned as
+``RayQueryResult.request_id``; it is also the async ticket.  While a
+profiler records, the spans ``service.submit``, ``service.wait`` (the
+stream sync of ``submit``) and ``service.collect`` log their intervals
+under it (``utils/trace.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Optional
 
@@ -34,9 +42,12 @@ from ..core.types import (ALL_LAYERS, DEFAULT_DEVICE, Hits, Rays, RayStats,
                           make_rays)
 from ..dispatch.dispatcher import RayDispatcher
 from ..scene.scene import RayScene
+from ..utils.trace import request_span, span
 
 MODE_NEAREST = 0
 MODE_ANY_HIT = 1
+
+_REQUEST_IDS = itertools.count(1)   # process-wide, so the log's ids differ
 
 
 @dataclasses.dataclass
@@ -58,6 +69,7 @@ class RayQueryResult:
     hit_flags: Optional[torch.Tensor] = None   # ANY_HIT mode
     stats: Optional[RayStats] = None
     elapsed_ms: float = 0.0
+    request_id: int = 0
 
 
 def _wait(device: torch.device) -> None:
@@ -85,7 +97,7 @@ class RayTracerService:
         self._dispatcher: RayDispatcher | None = None
         self._last_stats: RayStats | None = None
         self._last_elapsed_ms = 0.0
-        self._pending: list[tuple] = []
+        self._pending: dict[int, tuple] = {}   # request id -> its result
 
     def _check_backend(self, backend: str) -> None:
         if backend not in self.BACKENDS:
@@ -205,15 +217,20 @@ class RayTracerService:
     def submit(self, query: RayQuery) -> RayQueryResult:
         """Batch cast, the preferred entry point; waits for the result and
         times the call on the wall clock."""
+        rid = next(_REQUEST_IDS)
         t0 = time.perf_counter()
-        hits, occ, stats = self._dispatch(query)
-        _wait(query.rays.origin.device)
-        result = RayQueryResult(hits=hits, hit_flags=occ)
-        if hits is not None and query.collect_stats:
-            result.stats = stats
-            self._last_stats = stats
-        result.elapsed_ms = (time.perf_counter() - t0) * 1e3
-        self._last_elapsed_ms = result.elapsed_ms
+        with request_span("service.submit", rid):
+            hits, occ, stats = self._dispatch(query)
+            with request_span("service.wait", rid):
+                _wait(query.rays.origin.device)
+            with span("service.result"):
+                result = RayQueryResult(hits=hits, hit_flags=occ,
+                                        request_id=rid)
+                if hits is not None and query.collect_stats:
+                    result.stats = stats
+                    self._last_stats = stats
+                result.elapsed_ms = (time.perf_counter() - t0) * 1e3
+                self._last_elapsed_ms = result.elapsed_ms
         return result
 
     def cast_rays_batch(self, rays: Rays, layer_mask: int = ALL_LAYERS,
@@ -229,24 +246,32 @@ class RayTracerService:
 
     # ---- async ----------------------------------------------------------
     def submit_async(self, query: RayQuery) -> int:
-        """Launch a cast without waiting; returns a ticket for
-        ``collect_async``.  On a CUDA device an event recorded on the
-        current stream marks the end of the ticket's work."""
-        hits, occ, stats = self._dispatch(query)
-        dev = query.rays.origin.device
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-        self._pending.append((hits, occ, stats, event))
-        return len(self._pending) - 1
+        """Launch a cast without waiting; returns its request id, the
+        ticket for ``collect_async``.  On a CUDA device an event recorded
+        on the current stream marks the end of the ticket's work."""
+        rid = next(_REQUEST_IDS)
+        with request_span("service.submit", rid):
+            hits, occ, stats = self._dispatch(query)
+            dev = query.rays.origin.device
+            event = None
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+            self._pending[rid] = (hits, occ, stats, event)
+        return rid
 
     def collect_async(self, ticket: int) -> RayQueryResult:
-        """Wait until the ticketed cast finishes and return it."""
-        hits, occ, stats, event = self._pending[ticket]
-        if event is not None:
-            event.synchronize()
-        return RayQueryResult(hits=hits, hit_flags=occ, stats=stats)
+        """Wait until the ticketed cast finishes and return it; a ticket
+        is collected once (its result is then let go)."""
+        with request_span("service.collect", ticket):
+            if ticket not in self._pending:
+                raise KeyError(f"ticket {ticket} is not pending: unknown "
+                               f"or already collected")
+            hits, occ, stats, event = self._pending.pop(ticket)
+            if event is not None:
+                event.synchronize()
+        return RayQueryResult(hits=hits, hit_flags=occ, stats=stats,
+                              request_id=ticket)
 
     # ---- stats ------------------------------------------------------------
     def get_last_stats(self) -> dict:

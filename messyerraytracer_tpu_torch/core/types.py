@@ -19,6 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.trace import span
+
 # --- constants (bit-equal to the JAX package) -------------------------------
 T_MIN_DEFAULT = 1e-3
 T_MAX_DEFAULT = 3.402823466e38  # FLT_MAX
@@ -60,8 +62,9 @@ class Rays:
 
     def take(self, idx) -> "Rays":
         """Rays ``idx`` (an index tensor or array) as a new batch."""
-        return Rays(self.origin[idx], self.direction[idx],
-                    self.t_min[idx], self.t_max[idx])
+        with span("rays.take"):
+            return Rays(self.origin[idx], self.direction[idx],
+                        self.t_min[idx], self.t_max[idx])
 
 
 def _f32(x, device) -> torch.Tensor:

@@ -25,6 +25,7 @@ import torch
 
 from ..core.types import ALL_LAYERS, Hits, Rays, RayStats
 from ..scene.scene import RayScene
+from ..utils.trace import span
 from .morton import (
     _octant,
     ray_position_morton,
@@ -136,22 +137,25 @@ class RayDispatcher:
 
     def cast_rays(self, rays: Rays, query_mask=ALL_LAYERS,
                   coherent: bool = False) -> tuple[Hits, RayStats]:
-        """Closest-hit batch cast."""
-        scene = self._scene_for()
-        if (not coherent) and rays.count >= MIN_BATCH_FOR_SORTING:
-            sorted_rays, perm = self._sorted(rays)
-            if self.windows and getattr(scene, "bvh", None) is not None:
-                hits, stats = self._cast_windowed(scene, sorted_rays,
-                                                  query_mask)
-            elif (self.proxy and rays.count >= PROXY_MIN_BATCH
-                    and self._proxy_scene(scene) is not None):
-                hits, stats, perm = self._cast_two_pass(
-                    scene, sorted_rays, perm, query_mask)
-            else:
-                hits, stats = scene.cast_rays(sorted_rays, query_mask,
-                                              incoherent=True)
+        """Closest-hit batch cast, inside the span ``dispatch.cast``."""
+        with span("dispatch.cast"):
+            scene = self._scene_for()
+            if coherent or rays.count < MIN_BATCH_FOR_SORTING:
+                return scene.cast_rays(rays, query_mask)
+            with span("dispatch.sort"):
+                sorted_rays, perm = self._sorted(rays)
+            with span("dispatch.scene"):
+                if self.windows and getattr(scene, "bvh", None) is not None:
+                    hits, stats = self._cast_windowed(scene, sorted_rays,
+                                                      query_mask)
+                elif (self.proxy and rays.count >= PROXY_MIN_BATCH
+                        and self._proxy_scene(scene) is not None):
+                    hits, stats, perm = self._cast_two_pass(
+                        scene, sorted_rays, perm, query_mask)
+                else:
+                    hits, stats = scene.cast_rays(sorted_rays, query_mask,
+                                                  incoherent=True)
             return unshuffle_hits(hits, perm), stats
-        return scene.cast_rays(rays, query_mask)
 
     # ---- two-pass incoherent cast (proxy caps + destination sort) -----
     def _proxy_scene(self, scene):
@@ -286,12 +290,15 @@ class RayDispatcher:
 
     def any_hit_rays(self, rays: Rays, query_mask=ALL_LAYERS,
                      coherent: bool = False) -> torch.Tensor:
-        """Occlusion batch cast."""
-        scene = self._scene_for()
-        if (not coherent) and rays.count >= MIN_BATCH_FOR_SORTING:
-            sorted_rays, perm = self._sorted(rays)
-            occ = scene.any_hit_rays(sorted_rays, query_mask,
-                                     incoherent=True)
+        """Occlusion batch cast, inside the span ``dispatch.cast``."""
+        with span("dispatch.cast"):
+            scene = self._scene_for()
+            if coherent or rays.count < MIN_BATCH_FOR_SORTING:
+                return scene.any_hit_rays(rays, query_mask)
+            with span("dispatch.sort"):
+                sorted_rays, perm = self._sorted(rays)
+            with span("dispatch.scene"):
+                occ = scene.any_hit_rays(sorted_rays, query_mask,
+                                         incoherent=True)
             return unshuffle_flags(occ, perm)
-        return scene.any_hit_rays(rays, query_mask)
 

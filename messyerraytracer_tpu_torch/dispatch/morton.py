@@ -19,27 +19,29 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.types import Hits, Rays
+from ..utils.trace import span
 
 DEAD_KEY = 0x7FFFFFFF   # sort key of a dead ray: above every live key
 
 
 def morton_spread_10(v: torch.Tensor) -> torch.Tensor:
     """Spread 10 bits to 30 by inserting 2 zero bits between each bit."""
-    v = v.to(torch.int64) & 0x3FF
-    v = (v | (v << 16)) & 0x030000FF
-    v = (v | (v << 8)) & 0x0300F00F
-    v = (v | (v << 4)) & 0x030C30C3
-    v = (v | (v << 2)) & 0x09249249
-    return v
+    with span("key.spread"):
+        v = v.to(torch.int64) & 0x3FF
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
 
 
 def morton_encode_3d(x, y, z) -> torch.Tensor:
     """30-bit 3D Morton code (int64)."""
-    return ((morton_spread_10(x) << 2) | (morton_spread_10(y) << 1)
-            | morton_spread_10(z))
+    x, y, z = morton_spread_10(x), morton_spread_10(y), morton_spread_10(z)
+    with span("key.merge"):
+        return (x << 2) | (y << 1) | z
 
 
 def _quantize(n: torch.Tensor, scale: float) -> torch.Tensor:
@@ -83,14 +85,14 @@ def ray_6d_morton(origin: torch.Tensor, direction: torch.Tensor,
 
 
 def _stable_argsort(keys: torch.Tensor) -> torch.Tensor:
-    with record_function("morton.sort"):
+    with span("morton.sort"):
         return torch.sort(keys, stable=True).indices
 
 
 def sort_rays_by_direction(rays: Rays) -> tuple[Rays, torch.Tensor]:
     """Stable-sort rays by direction Morton key.  Returns (sorted_rays,
     perm) with ``sorted[i] = rays[perm[i]]``."""
-    with record_function("morton.key"):
+    with span("morton.key"):
         keys = ray_direction_morton(rays.direction)
     perm = _stable_argsort(keys)
     return apply_permutation(rays, perm), perm
@@ -115,10 +117,12 @@ def sort_perm_6d(rays: Rays, lo, hi, octant_major: bool = True,
     ``live`` (bool (N,), optional): dead rays get ``DEAD_KEY``, above every
     live key (< 2^28), so the stable sort puts them at the end in their
     input order."""
-    with record_function("morton.key"):
+    with span("morton.key"):
         keys = _keys_6d(rays, lo, hi, octant_major, dir_bits)
         if live is not None:
-            keys = torch.where(live, keys, torch.full_like(keys, DEAD_KEY))
+            with span("key.merge"):
+                keys = torch.where(live, keys,
+                                   torch.full_like(keys, DEAD_KEY))
     return _stable_argsort(keys)
 
 
@@ -128,13 +132,17 @@ def _keys_6d(rays: Rays, lo, hi, octant_major: bool = True,
     if octant_major:
         b = dir_bits
         qmax = (1 << b) - 1
-        nd = ((rays.direction + 1.0) * 0.5).clamp(0.0, 1.0)
-        qd = torch.clamp_max((nd * float(qmax + 1)).to(torch.int64), qmax)
-        dirm = morton_encode_3d(qd[:, 0], qd[:, 1], qd[:, 2])
-        qo = _quantize(_unit_box(rays.origin, lo, hi), 511.0)
-        okey = morton_encode_3d(qo[:, 0], qo[:, 1], qo[:, 2])  # 27 bits
+        with span("key.quantize"):
+            nd = ((rays.direction + 1.0) * 0.5).clamp(0.0, 1.0)
+            qd = torch.clamp_max((nd * float(qmax + 1)).to(torch.int64),
+                                 qmax).unbind(1)
+        dirm = morton_encode_3d(*qd)
+        with span("key.quantize"):
+            qo = _quantize(_unit_box(rays.origin, lo, hi), 511.0).unbind(1)
+        okey = morton_encode_3d(*qo)  # 27 bits
         minor = 28 - 3 * b
-        keys = (dirm << minor) | (okey >> (27 - minor))
+        with span("key.merge"):
+            keys = (dirm << minor) | (okey >> (27 - minor))
     else:
         keys = ray_6d_morton(rays.origin, rays.direction, lo,
                              hi).to(torch.int64)
@@ -143,7 +151,7 @@ def _keys_6d(rays: Rays, lo, hi, octant_major: bool = True,
 
 def apply_permutation(rays: Rays, perm: torch.Tensor) -> Rays:
     """``rays[perm]`` as a new batch."""
-    with record_function("morton.gather"):
+    with span("morton.gather"):
         return rays.take(perm)
 
 
@@ -156,14 +164,14 @@ def _unpermute(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 def unshuffle_hits(hits: Hits, perm: torch.Tensor) -> Hits:
     """Invert the sort permutation on a Hits batch."""
-    with record_function("morton.unshuffle"):
+    with span("morton.unshuffle"):
         return Hits(*(_unpermute(getattr(hits, f), perm) for f in (
             "t", "position", "normal", "u", "v", "prim_id", "hit_layers")))
 
 
 def unshuffle_flags(flags: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """Invert the permutation on a bool array."""
-    with record_function("morton.unshuffle"):
+    with span("morton.unshuffle"):
         return _unpermute(flags, perm)
 
 

@@ -22,13 +22,14 @@ boxes regathered; the object-space cluster tables stay as they are.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..accel.bvh import BVH, build_bvh, build_bvh_over_aabbs, refit_bvh
 from ..core.types import ALL_LAYERS, DEFAULT_DEVICE
+from ..utils.trace import span
 from .cluster import (
     LOCAL_BITS,
     LOCAL_MASK,
@@ -146,20 +147,20 @@ def _pair_world_aabbs(obj_min, obj_max, m):
     """``_pair_world_aabbs_np`` in torch, on the device of its (P, 3)
     boxes and (P, 12) forward rows: the same float32 operations in the
     same order, so the same bounds."""
-    wmin = torch.full_like(obj_min, float("inf"))
-    wmax = torch.full_like(obj_min, -float("inf"))
-    for cx in (0, 1):
-        for cy in (0, 1):
-            for cz in (0, 1):
-                c = (obj_max[:, 0] if cx else obj_min[:, 0],
-                     obj_max[:, 1] if cy else obj_min[:, 1],
-                     obj_max[:, 2] if cz else obj_min[:, 2])
-                w = torch.stack(
-                    [m[:, 4 * r] * c[0] + m[:, 4 * r + 1] * c[1]
-                     + m[:, 4 * r + 2] * c[2] + m[:, 4 * r + 3]
-                     for r in range(3)], dim=-1)
-                wmin = torch.minimum(wmin, w)
-                wmax = torch.maximum(wmax, w)
+    with span("refit.rows"):
+        wmin = torch.full_like(obj_min, float("inf"))
+        wmax = torch.full_like(obj_min, -float("inf"))
+        lo, hi, col = obj_min.unbind(1), obj_max.unbind(1), m.unbind(1)
+    for cx, cy, cz in itertools.product((0, 1), repeat=3):
+        with span("refit.corner"):
+            c = (hi[0] if cx else lo[0], hi[1] if cy else lo[1],
+                 hi[2] if cz else lo[2])
+            w = torch.stack(
+                [col[4 * r] * c[0] + col[4 * r + 1] * c[1]
+                 + col[4 * r + 2] * c[2] + col[4 * r + 3]
+                 for r in range(3)], dim=-1)
+            wmin = torch.minimum(wmin, w)
+            wmax = torch.maximum(wmax, w)
     return wmin, wmax
 
 
@@ -288,18 +289,25 @@ def set_transforms(ct: ClusterTLAS, transforms: list) -> ClusterTLAS:
         raise ValueError(f"set_transforms: {len(transforms)} transforms "
                          f"for {ct.n_inst} instances")
     dev = ct.node_box.device
-    iinv, ifwd = _inst_tables(transforms)
-    with record_function("refit.set_transforms"):
-        fwd = torch.as_tensor(_fwd_rows(transforms), device=dev)
+    with span("refit.set_transforms"):
+        with span("refit.inverse"):
+            iinv, ifwd = _inst_tables(transforms)
+            fwd_rows = _fwd_rows(transforms)
+        with span("refit.rows"):
+            fwd = torch.as_tensor(fwd_rows, device=dev)[
+                ct.pair_inst.long()]
         wmin, wmax = _pair_world_aabbs(ct.pair_obj_min, ct.pair_obj_max,
-                                       fwd[ct.pair_inst.long()])
-        perm = ct.pair_bvh.tri_order.long()   # refit takes per-slot boxes
-        bvh = refit_bvh(ct.pair_bvh, wmin[perm], wmax[perm])
-        return dataclasses.replace(
-            ct, node_box=_child_boxes(ct.child_node, bvh), pair_bvh=bvh,
-            iinv=torch.as_tensor(np.ascontiguousarray(iinv[:, :12]),
-                                 device=dev),
-            ifwd=torch.as_tensor(ifwd, device=dev))
+                                       fwd)
+        with span("refit.slots"):
+            perm = ct.pair_bvh.tri_order.long()  # refit takes per-slot boxes
+            wmin, wmax = wmin[perm], wmax[perm]
+        bvh = refit_bvh(ct.pair_bvh, wmin, wmax)
+        with span("refit.nodes"):
+            return dataclasses.replace(
+                ct, node_box=_child_boxes(ct.child_node, bvh), pair_bvh=bvh,
+                iinv=torch.as_tensor(np.ascontiguousarray(iinv[:, :12]),
+                                     device=dev),
+                ifwd=torch.as_tensor(ifwd, device=dev))
 
 
 def cluster_tlas_from_jax(nodes, ablocks, islab, iprim, iinv, ifwd, *,

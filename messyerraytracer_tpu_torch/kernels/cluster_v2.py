@@ -49,7 +49,6 @@ import threading
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.types import (
     INV_DIR_EPS,
@@ -62,6 +61,7 @@ from ..core.types import (
     RayStats,
     safe_inv_direction,
 )
+from ..utils.trace import span
 from .cluster import LOCAL_BITS, LOCAL_MASK, ClusterScene, _kstack_for
 from .cluster_tlas import ClusterTLAS
 
@@ -431,7 +431,7 @@ def cluster_cast_cuda(origin, direction, t_min, t_max, cs: ClusterScene,
     if n == 0:
         return fout, iout, counters
     # the runtime launches on its current device: make it the rays' one
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("b1.launch"):
         err = cuda_library().mrt_cluster_cast(
             *args, fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
             None if warp_stats is None else warp_stats.data_ptr(),
@@ -464,40 +464,48 @@ def cluster_cast(rays: Rays, cs: ClusterScene, query_mask: int = -1,
 
 def _hits_from_buffers_v2(fout, iout, rays: Rays):
     """Elementwise hit assembly from the kernel's per-ray outputs."""
-    t, u, v = fout[0], fout[1], fout[2]
-    pid, lay, tt, inst, nv = iout[0], iout[1], iout[2], iout[3], iout[4]
-    found = pid >= 0
-    nrm = -fout[3:6].T
-    ln = torch.sqrt((nrm * nrm).sum(dim=-1, keepdim=True))
-    nrm = nrm / torch.where(ln > 0.0, ln, torch.ones_like(ln))
-    zero = torch.zeros_like(nrm)
-    hits = Hits(
-        t=torch.where(found, t, torch.full_like(t, T_MAX_DEFAULT)),
-        position=torch.where(found[:, None],
-                             rays.origin + rays.direction * t[:, None], zero),
-        normal=torch.where(found[:, None], nrm, zero),
-        u=u,
-        v=v,
-        prim_id=torch.where(found, pid, torch.full_like(pid, NO_HIT)),
-        hit_layers=torch.where(found, lay, torch.zeros_like(lay)),
-    )
-    return hits, found, tt, inst, nv
+    with span("hits.unpack"):
+        t, u, v = fout.unbind(0)[:3]
+        pid, lay, tt, inst, nv = iout.unbind(0)
+        found = pid >= 0
+    with span("hits.normal"):
+        nrm = -fout[3:6].T
+        ln = torch.sqrt((nrm * nrm).sum(dim=-1, keepdim=True))
+        nrm = nrm / torch.where(ln > 0.0, ln, torch.ones_like(ln))
+    with span("hits.fields"):
+        zero = torch.zeros_like(nrm)
+        hits = Hits(
+            t=torch.where(found, t, torch.full_like(t, T_MAX_DEFAULT)),
+            position=torch.where(found[:, None],
+                                 rays.origin + rays.direction * t[:, None],
+                                 zero),
+            normal=torch.where(found[:, None], nrm, zero),
+            u=u,
+            v=v,
+            prim_id=torch.where(found, pid, torch.full_like(pid, NO_HIT)),
+            hit_layers=torch.where(found, lay, torch.zeros_like(lay)),
+        )
+        return hits, found, tt, inst, nv
 
 
 def _cast(rays, cs, query_mask, any_hit):
-    """Kernel B1 and its hit assembly, inside the profiler range
-    ``cast``."""
-    with record_function("cast"):
+    """Kernel B1 and its hit assembly, inside the span ``cast`` (the
+    assembly in ``cast.hits``)."""
+    with span("cast"):
         fout, iout, counters = cluster_cast(rays, cs, query_mask, any_hit)
-        hits, found, tt, inst, nv = _hits_from_buffers_v2(fout, iout, rays)
+        with span("cast.hits"):
+            hits, found, tt, inst, nv = _hits_from_buffers_v2(fout, iout,
+                                                              rays)
     dev = rays.origin.device
-    stats = RayStats(
-        rays_cast=torch.tensor(rays.count, dtype=torch.int64, device=dev),
-        tri_tests=tt.sum(dtype=torch.int64),
-        bvh_nodes_visited=counters[0],
-        hits=found.sum(),
-        stack_drops=counters[1],
-    )
+    with span("cast.stats"):
+        stats = RayStats(
+            rays_cast=torch.tensor(rays.count, dtype=torch.int64,
+                                   device=dev),
+            tri_tests=tt.sum(dtype=torch.int64),
+            bvh_nodes_visited=counters[0],
+            hits=found.sum(),
+            stack_drops=counters[1],
+        )
     return hits, stats, found, tt, inst, nv
 
 
@@ -533,7 +541,8 @@ def cast_rays_cluster_tlas_v2(rays: Rays, ct: ClusterTLAS,
     if not isinstance(ct, ClusterTLAS):
         raise TypeError("cast_rays_cluster_tlas_v2 needs a ClusterTLAS")
     hits, stats, found, tt, inst, nv = _cast(rays, ct, query_mask, any_hit)
-    inst_id = torch.where(found, inst, torch.full_like(inst, -1))
+    with span("cast.instance"):
+        inst_id = torch.where(found, inst, torch.full_like(inst, -1))
     if return_per_ray:
         return (hits, stats, found, inst_id,
                 {"tri_tests": tt, "node_visits": nv})

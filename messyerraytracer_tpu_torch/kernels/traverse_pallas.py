@@ -51,9 +51,9 @@ import os
 import threading
 
 import torch
-from torch.profiler import record_function
 
 from ..core.types import NO_HIT, Hits, Rays, RayStats, safe_inv_direction
+from ..utils.trace import span
 from .cluster import _kstack_for
 from .cluster_v2 import (
     _F32,
@@ -327,7 +327,7 @@ def wide_cast_cuda(origin, direction, t_min, t_max, ws: WideScene,
         return fout, iout, counters
     lib = cuda_library()
     # the runtime launches on its current device: make it the rays' one
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("b4.launch"):
         err = lib.mrt_wide_cast(
             origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
             t_max.data_ptr(), n,
@@ -411,7 +411,7 @@ def cast_rays_wide(rays: Rays, scene: WideScene, query_mask: int = -1,
     quantized = columnar == "q"
     if quantized and scene.branching != WIDE8_CAP:
         raise ValueError("columnar='q' needs the 8-wide layout")
-    with record_function("cast"):
+    with span("cast"):
         fout, iout, counters = wide_cast(rays, scene, query_mask, any_hit,
                                          quantized)
         hits, found = _hits_from_slots(fout, iout, rays, scene)

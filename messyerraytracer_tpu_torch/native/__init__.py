@@ -36,18 +36,38 @@ _LIB = None
 _TRIED = False
 
 
+def _read(path: str) -> str | None:
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return None
+
+
+def _write_atomic(path: str, text: str) -> None:
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path))
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
 def build_shared_library(cmd: list[str], sources: list[str],
                          name: str) -> str:
     """Compile ``sources`` with ``cmd + [-o out] + sources`` into
-    ``BUILD_DIR/name`` unless an up-to-date build is there.
+    ``BUILD_DIR/name`` unless an up-to-date build is there: one newer than
+    every source and built by the same command, which ``name + ".cmd"``
+    beside it records (a change of flags rebuilds).
 
     The output is written under a temporary name and renamed into place,
     so concurrent builders (test workers) never load a half-written file.
     Raises ``RuntimeError`` with the compiler's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, name)
+    stamp = out + ".cmd"
+    key = "\n".join(cmd + ["-o", "<out>"] + sources) + "\n"
     newest = max(os.path.getmtime(s) for s in sources)
-    if os.path.exists(out) and os.path.getmtime(out) >= newest:
+    if (os.path.exists(out) and os.path.getmtime(out) >= newest
+            and _read(stamp) == key):
         return out
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -59,6 +79,7 @@ def build_shared_library(cmd: list[str], sources: list[str],
                 f"building {name} failed ({' '.join(cmd)}):\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
+        _write_atomic(stamp, key)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

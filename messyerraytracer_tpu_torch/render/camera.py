@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.types import DEFAULT_DEVICE, Rays, make_rays
+from ..utils.trace import span
 
 
 def _r32(x: torch.Tensor) -> torch.Tensor:
@@ -40,9 +41,11 @@ def _r32(x: torch.Tensor) -> torch.Tensor:
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     """v / |v| for float32 values held in float64, rounded to float32
     after every operation."""
-    sq = _r32(v * v)
-    n2 = _r32(_r32(sq[..., 0:1] + sq[..., 1:2]) + sq[..., 2:3])
-    return _r32(v / _r32(torch.sqrt(n2)))
+    with span("camera.length"):
+        sq = _r32(v * v)
+        n2 = _r32(_r32(sq[..., 0:1] + sq[..., 1:2]) + sq[..., 2:3])
+    with span("camera.unit"):
+        return _r32(v / _r32(torch.sqrt(n2)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,23 +66,24 @@ class CameraParams:
     def look_at(origin, target, up=(0.0, 1.0, 0.0), fov_degrees=75.0,
                 ortho=False, ortho_size=4.0) -> "CameraParams":
         """Construct a camera basis looking from origin toward target."""
-        o = np.asarray(origin, np.float32)
-        fwd = np.asarray(target, np.float32) - o
-        fwd = fwd / np.linalg.norm(fwd)
-        upv = np.asarray(up, np.float32)
-        if abs(float(np.dot(fwd, upv) / np.linalg.norm(upv))) > 0.999:
-            upv = np.array([1.0, 0.0, 0.0], np.float32)
-        right = np.cross(fwd, upv)
-        right = right / np.linalg.norm(right)
-        true_up = np.cross(right, fwd)
-        basis = np.stack([right, true_up, -fwd], axis=1)  # -Z = forward
-        return CameraParams(
-            origin=tuple(float(x) for x in o),
-            basis=tuple(tuple(float(x) for x in row) for row in basis),
-            fov_degrees=fov_degrees,
-            ortho=ortho,
-            ortho_size=ortho_size,
-        )
+        with span("camera.look_at"):
+            o = np.asarray(origin, np.float32)
+            fwd = np.asarray(target, np.float32) - o
+            fwd = fwd / np.linalg.norm(fwd)
+            upv = np.asarray(up, np.float32)
+            if abs(float(np.dot(fwd, upv) / np.linalg.norm(upv))) > 0.999:
+                upv = np.array([1.0, 0.0, 0.0], np.float32)
+            right = np.cross(fwd, upv)
+            right = right / np.linalg.norm(right)
+            true_up = np.cross(right, fwd)
+            basis = np.stack([right, true_up, -fwd], axis=1)  # -Z = forward
+            return CameraParams(
+                origin=tuple(float(x) for x in o),
+                basis=tuple(tuple(float(x) for x in row) for row in basis),
+                fov_degrees=fov_degrees,
+                ortho=ortho,
+                ortho_size=ortho_size,
+            )
 
 
 def generate_rays(cam: CameraParams, width: int, height: int,
@@ -87,7 +91,14 @@ def generate_rays(cam: CameraParams, width: int, height: int,
     """Generate width*height rays in raster order (row-major, top-left
     first).  ``jitter`` is the sub-pixel offset in [0,1): a pair of
     scalars or of (H, W) arrays."""
-    dev = torch.device(device)
+    with span("camera.rays"):
+        return _generate_rays(cam, width, height, jitter,
+                              torch.device(device))
+
+
+def _generate_rays(cam: CameraParams, width: int, height: int, jitter,
+                   dev: torch.device) -> Rays:
+    """``generate_rays`` on ``dev``, inside its span."""
 
     def f64(x):
         """float32 values (a float is rounded to float32 first, as a float32
@@ -95,36 +106,48 @@ def generate_rays(cam: CameraParams, width: int, height: int,
         return torch.as_tensor(x, dtype=torch.float32,
                                device=dev).to(torch.float64)  # lint: off
 
-    origin, basis = f64(cam.origin), f64(cam.basis)
-    jx, jy = (f64(j) for j in jitter)
-
-    # float64 steps rounded to float32 (module docstring)
-    x = torch.arange(width, dtype=torch.float64,  # lint: off
-                     device=dev)[None, :]
-    y = torch.arange(height, dtype=torch.float64,  # lint: off
-                     device=dev)[:, None]
-    u = _r32(_r32(2.0 * _r32(x + jx)) / f64(width)) - 1.0
-    v = 1.0 - _r32(_r32(2.0 * _r32(y + jy)) / f64(height))
-    u, v = torch.broadcast_tensors(_r32(u), _r32(v))
+    with span("camera.grid"):
+        origin, basis = f64(cam.origin), f64(cam.basis)
+        jx, jy = (f64(j) for j in jitter)
+    with span("camera.grid"):
+        # float64 steps rounded to float32 (module docstring)
+        x = torch.arange(width, dtype=torch.float64,  # lint: off
+                         device=dev)[None, :]
+        y = torch.arange(height, dtype=torch.float64,  # lint: off
+                         device=dev)[:, None]
+        w64, h64 = f64(width), f64(height)
+    with span("camera.ndc"):
+        u = _r32(_r32(2.0 * _r32(x + jx)) / w64) - 1.0
+    with span("camera.ndc"):
+        v = 1.0 - _r32(_r32(2.0 * _r32(y + jy)) / h64)
+    with span("camera.ndc"):
+        u, v = torch.broadcast_tensors(_r32(u), _r32(v))
 
     if not cam.ortho:
-        tan_half = float(np.tan(np.deg2rad(cam.fov_degrees) * 0.5))
-        half_w = tan_half * (width / height)
-        a = _r32(u * f64(half_w))[..., None]
-        b = _r32(v * f64(tan_half))[..., None]
-        world = _r32(_r32(_r32(a * basis[:, 0]) + _r32(b * basis[:, 1]))
-                     - basis[:, 2])
-        d = _normalize(world).to(torch.float32)
-        o = origin.to(torch.float32).expand(d.shape)
+        with span("camera.plane"):
+            tan_half = float(np.tan(np.deg2rad(cam.fov_degrees) * 0.5))
+            half_w = tan_half * (width / height)
+            a = _r32(u * f64(half_w))[..., None]
+            b = _r32(v * f64(tan_half))[..., None]
+        with span("camera.dirs"):
+            world = _r32(_r32(_r32(a * basis[:, 0]) + _r32(b * basis[:, 1]))
+                         - basis[:, 2])
+        d = _normalize(world)
+        with span("camera.make"):
+            d = d.to(torch.float32)
+            o = origin.to(torch.float32).expand(d.shape)
+    else:
+        with span("camera.dirs"):
+            half_h = cam.ortho_size * 0.5
+            half_w = half_h * (width / height)
+            uw = _r32(u * f64(half_w))[..., None]
+            vh = _r32(v * f64(half_h))[..., None]
+            o = _r32(_r32(origin + _r32(basis[:, 0] * uw))
+                     + _r32(basis[:, 1] * vh))
+            o = o.to(torch.float32)
+            d = (-basis[:, 2]).to(torch.float32).expand(o.shape)
+    with span("camera.make"):
         return make_rays(o.reshape(-1, 3), d.reshape(-1, 3), device=dev)
-    half_h = cam.ortho_size * 0.5
-    half_w = half_h * (width / height)
-    uw = _r32(u * f64(half_w))[..., None]
-    vh = _r32(v * f64(half_h))[..., None]
-    o = _r32(_r32(origin + _r32(basis[:, 0] * uw)) + _r32(basis[:, 1] * vh))
-    o = o.to(torch.float32)
-    d = (-basis[:, 2]).to(torch.float32).expand(o.shape)
-    return make_rays(o.reshape(-1, 3), d.reshape(-1, 3), device=dev)
 
 
 def debug_grid_rays(origin, forward, grid_w: int = 16, grid_h: int = 12,

@@ -25,6 +25,7 @@ import dataclasses
 import torch
 
 from ..core.types import Rays
+from ..utils.trace import span
 from .renderer import SHADOW_EPS, shadow_rays
 from .shade import (
     EnvironmentData,
@@ -51,35 +52,39 @@ _M32 = 0xFFFFFFFF
 
 def pcg32_seed(seed: torch.Tensor) -> torch.Tensor:
     """Vectorized ``PCG32::seed``: state=0; next(); state+=seed; next()."""
-    state = torch.zeros_like(seed, dtype=torch.int64)
-    state, _ = pcg32_next(state)
-    state = (state + (seed.to(torch.int64) & _M32)) & _M32
-    state, _ = pcg32_next(state)
-    return state
+    with span("rng.seed"):
+        state = torch.zeros_like(seed, dtype=torch.int64)
+        state, _ = pcg32_next(state)
+        state = (state + (seed.to(torch.int64) & _M32)) & _M32
+        state, _ = pcg32_next(state)
+        return state
 
 
 def pcg32_next(state: torch.Tensor):
     """Advance the state; returns (new_state, output word), both int64
     values < 2^32.  Every product is < 2^32 * 2^30, inside int64."""
-    old = state
-    new = (old * 747796405 + 2891336453) & _M32
-    word = ((((old >> ((old >> 28) + 4)) ^ old) * 277803737) & _M32)
-    return new, (word >> 22) ^ word
+    with span("rng.next"):
+        old = state
+        new = (old * 747796405 + 2891336453) & _M32
+        word = ((((old >> ((old >> 28) + 4)) ^ old) * 277803737) & _M32)
+        return new, (word >> 22) ^ word
 
 
 def pcg32_float(state: torch.Tensor):
     """Returns (new_state, float32 in [0,1)): the unsigned word rounded to
     float32, times 2^-32."""
-    state, word = pcg32_next(state)
-    return state, word.to(torch.float32) * (1.0 / 4294967296.0)
+    with span("rng.float"):
+        state, word = pcg32_next(state)
+        return state, word.to(torch.float32) * (1.0 / 4294967296.0)
 
 
 def pixel_seeds(n: int, sample_index: int, device) -> torch.Tensor:
     """PCG32 states of ``n`` pixels for one sample: seeded with
     pixel*1009 + sample_index*6529 + 7 (mod 2^32)."""
-    pixel = torch.arange(n, dtype=torch.int64, device=device)
-    return pcg32_seed((pixel * 1009 + (int(sample_index) * 6529 & _M32)
-                       + 7) & _M32)
+    with span("rng.seed"):
+        pixel = torch.arange(n, dtype=torch.int64, device=device)
+        seed = (pixel * 1009 + (int(sample_index) * 6529 & _M32) + 7) & _M32
+    return pcg32_seed(seed)
 
 
 # ============================================================================
@@ -88,39 +93,45 @@ def pixel_seeds(n: int, sample_index: int, device) -> torch.Tensor:
 
 def construct_onb(n: torch.Tensor):
     """Branchless ONB (Duff 2017).  n: (N,3)."""
-    sign = torch.where(n[:, 2] >= 0.0, 1.0, -1.0)
-    a = -1.0 / (sign + n[:, 2])
-    b = n[:, 0] * n[:, 1] * a
-    tangent = torch.stack([1.0 + sign * n[:, 0] * n[:, 0] * a, sign * b,
-                           -sign * n[:, 0]], dim=1)
-    bitangent = torch.stack([b, sign + n[:, 1] * n[:, 1] * a, -n[:, 1]],
-                            dim=1)
-    return tangent, bitangent
+    with span("sample.onb"):
+        sign = torch.where(n[:, 2] >= 0.0, 1.0, -1.0)
+        a = -1.0 / (sign + n[:, 2])
+        b = n[:, 0] * n[:, 1] * a
+    with span("sample.onb"):
+        tangent = torch.stack([1.0 + sign * n[:, 0] * n[:, 0] * a,
+                               sign * b, -sign * n[:, 0]], dim=1)
+        bitangent = torch.stack([b, sign + n[:, 1] * n[:, 1] * a,
+                                 -n[:, 1]], dim=1)
+        return tangent, bitangent
 
 
 def cosine_hemisphere_sample(normal, u1, u2):
     """Malley's method."""
-    r = torch.sqrt(u1)
-    phi = 2.0 * PI * u2
-    x = r * torch.cos(phi)
-    y = r * torch.sin(phi)
-    z = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
+    with span("sample.disk"):
+        r = torch.sqrt(u1)
+        phi = 2.0 * PI * u2
+        x = r * torch.cos(phi)
+        y = r * torch.sin(phi)
+        z = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
     t, b = construct_onb(normal)
-    return _unit(t * x[:, None] + b * y[:, None] + normal * z[:, None])
+    with span("sample.unit"):
+        return _unit(t * x[:, None] + b * y[:, None] + normal * z[:, None])
 
 
 def ggx_sample_half(normal, roughness, u1, u2):
     """GGX NDF inverse-CDF half-vector sample."""
-    a = roughness * roughness
-    a2 = a * a
-    cos_t = torch.sqrt((1.0 - u1) / (1.0 + (a2 - 1.0) * u1 + 1e-8))
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
-    phi = 2.0 * PI * u2
-    lx = sin_t * torch.cos(phi)
-    ly = sin_t * torch.sin(phi)
+    with span("sample.ggx"):
+        a = roughness * roughness
+        a2 = a * a
+        cos_t = torch.sqrt((1.0 - u1) / (1.0 + (a2 - 1.0) * u1 + 1e-8))
+        sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+        phi = 2.0 * PI * u2
+        lx = sin_t * torch.cos(phi)
+        ly = sin_t * torch.sin(phi)
     t, b = construct_onb(normal)
-    return _unit(t * lx[:, None] + b * ly[:, None]
-                      + normal * cos_t[:, None])
+    with span("sample.unit"):
+        return _unit(t * lx[:, None] + b * ly[:, None]
+                     + normal * cos_t[:, None])
 
 
 def sample_bounce(surf, rng_state):
@@ -130,31 +141,35 @@ def sample_bounce(surf, rng_state):
     rng_state, u1 = pcg32_float(rng_state)
     rng_state, u2 = pcg32_float(rng_state)
 
-    spec_prob = (surf.metallic + (1.0 - surf.metallic)
-                 * (1.0 - surf.roughness) * 0.5).clamp(0.05, 0.95)
-    do_spec = u_sel < spec_prob
+    with span("bounce.lobe"):
+        spec_prob = (surf.metallic + (1.0 - surf.metallic)
+                     * (1.0 - surf.roughness) * 0.5).clamp(0.05, 0.95)
+        do_spec = u_sel < spec_prob
 
     # specular branch (computed for all, selected by mask)
     h = ggx_sample_half(surf.normal, surf.roughness, u1, u2)
-    v_dot_h = torch.clamp_min((surf.view_dir * h).sum(dim=-1), 0.0)
-    spec_dir = _unit(h * (2.0 * v_dot_h)[:, None] - surf.view_dir)
-    spec_ndl = (surf.normal * spec_dir).sum(dim=-1)
-    n_dot_h = torch.clamp_min((surf.normal * h).sum(dim=-1), 0.0)
-    g = geometry_smith_ggx(surf.n_dot_v, spec_ndl, surf.roughness)
-    f = fresnel_schlick(v_dot_h[:, None], surf.f0)
-    common = g * v_dot_h / (surf.n_dot_v * n_dot_h * spec_prob + 1e-8)
-    spec_w = f * common[:, None]
-    spec_valid = spec_ndl > 0.0
+    with span("bounce.specular"):
+        v_dot_h = torch.clamp_min((surf.view_dir * h).sum(dim=-1), 0.0)
+        spec_dir = _unit(h * (2.0 * v_dot_h)[:, None] - surf.view_dir)
+        spec_ndl = (surf.normal * spec_dir).sum(dim=-1)
+        n_dot_h = torch.clamp_min((surf.normal * h).sum(dim=-1), 0.0)
+    with span("bounce.weight"):
+        g = geometry_smith_ggx(surf.n_dot_v, spec_ndl, surf.roughness)
+    with span("bounce.fresnel"):
+        f = fresnel_schlick(v_dot_h[:, None], surf.f0)
+        common = g * v_dot_h / (surf.n_dot_v * n_dot_h * spec_prob + 1e-8)
+        spec_w = f * common[:, None]
+        spec_valid = spec_ndl > 0.0
 
     # diffuse branch
     diff_dir = cosine_hemisphere_sample(surf.normal, u1, u2)
-    diff_ndl = (surf.normal * diff_dir).sum(dim=-1)
-    diff_w = surf.diff / (1.0 - spec_prob)[:, None]
-    diff_valid = diff_ndl > 0.0
-
-    direction = torch.where(do_spec[:, None], spec_dir, diff_dir)
-    weight = torch.where(do_spec[:, None], spec_w, diff_w)
-    valid = torch.where(do_spec, spec_valid, diff_valid)
+    with span("bounce.select"):
+        diff_ndl = (surf.normal * diff_dir).sum(dim=-1)
+        diff_w = surf.diff / (1.0 - spec_prob)[:, None]
+        diff_valid = diff_ndl > 0.0
+        direction = torch.where(do_spec[:, None], spec_dir, diff_dir)
+        weight = torch.where(do_spec[:, None], spec_w, diff_w)
+        valid = torch.where(do_spec, spec_valid, diff_valid)
     return rng_state, direction, weight, valid
 
 

@@ -24,9 +24,9 @@ import dataclasses
 import time
 
 import torch
-from torch.profiler import record_function
 
 from ..core.types import DEFAULT_DEVICE, Rays
+from ..utils.trace import span
 from . import framebuffer as fbch
 from .camera import CameraParams, generate_rays
 from .framebuffer import RayImage
@@ -153,23 +153,23 @@ class RayRenderer:
         frame = self._accum_frames
         jitter = ((halton(frame + 1, 2), halton(frame + 1, 3))
                   if st.accumulate else (0.5, 0.5))
-        with record_function("render.raygen"):
+        with span("render.raygen"):
             rays = generate_rays(self.camera, st.width, st.height,
                                  jitter=jitter, device=self.device)
         t1 = time.perf_counter()
 
-        with record_function("render.trace"):
+        with span("render.trace"):
             hits, _ = self.scene.cast_rays(rays)
         t2 = time.perf_counter()
 
         lit_mask = None
         if st.shadows and self.lights is not None and \
                 fbch.COLOR in st.channels:
-            with record_function("render.shadows"):
+            with span("render.shadows"):
                 lit_mask = self._trace_shadows(hits)
         t3 = time.perf_counter()
 
-        with record_function("render.shade"):
+        with span("render.shade"):
             fb = self._shade(rays, hits, lit_mask)
         t4 = time.perf_counter()
 

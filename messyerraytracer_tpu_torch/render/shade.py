@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.types import DEFAULT_DEVICE
+from ..utils.trace import span
 
 PI = 3.14159265358979
 
@@ -376,15 +377,17 @@ def extract_surface(hits, ray_dirs, materials: Materials,
     else:
         n = hits.normal
     # face-forward: flip the shading normal toward the viewer
-    flip = (n * ray_dirs).sum(dim=-1) > 0.0
-    n = torch.where(flip[:, None], -n, n)
+    with span("surface.normal"):
+        flip = (n * ray_dirs).sum(dim=-1) > 0.0
+        n = torch.where(flip[:, None], -n, n)
 
-    mat_ids = mat_ids.long()
-    albedo = materials.albedo[mat_ids]
-    metallic = materials.metallic[mat_ids]
-    roughness = torch.clamp_min(materials.roughness[mat_ids], 0.04)
-    specular = materials.specular[mat_ids]
-    emission = materials.emission[mat_ids]
+    with span("surface.material"):
+        mat_ids = mat_ids.long()
+        albedo = materials.albedo[mat_ids]
+        metallic = materials.metallic[mat_ids]
+        roughness = torch.clamp_min(materials.roughness[mat_ids], 0.04)
+        specular = materials.specular[mat_ids]
+        emission = materials.emission[mat_ids]
 
     if atlas is not None and attrs is not None:
         # textures need real UVs, so the whole block is gated on attrs
@@ -400,17 +403,19 @@ def extract_surface(hits, ray_dirs, materials: Materials,
             materials.normal_scale[mat_ids][:, None])
         n = torch.where(((ntex > 0) & has_t)[:, None], perturbed, n)
 
-    view = -ray_dirs
-    n_dot_v = torch.clamp_min((n * view).sum(dim=-1), 1e-4)
-
-    dielectric_f0 = (0.04 * specular * 2.0)[:, None]
-    f0 = dielectric_f0 * (1.0 - metallic[:, None]) + albedo * metallic[:, None]
-    diff = albedo * (1.0 - metallic[:, None])
-    return Surface(
-        position=hits.position, normal=n, view_dir=view, n_dot_v=n_dot_v,
-        albedo=albedo, metallic=metallic, roughness=roughness,
-        f0=f0, diff=diff, emission=emission, uv=uv,
-    )
+    with span("surface.lobes"):
+        view = -ray_dirs
+        n_dot_v = torch.clamp_min((n * view).sum(dim=-1), 1e-4)
+        dielectric_f0 = (0.04 * specular * 2.0)[:, None]
+        f0 = (dielectric_f0 * (1.0 - metallic[:, None])
+              + albedo * metallic[:, None])
+        diff = albedo * (1.0 - metallic[:, None])
+        return Surface(
+            position=hits.position, normal=n, view_dir=view,
+            n_dot_v=n_dot_v, albedo=albedo, metallic=metallic,
+            roughness=roughness, f0=f0, diff=diff, emission=emission,
+            uv=uv,
+        )
 
 
 def light_sample(surf_pos, lights: Lights, li: int):
@@ -438,41 +443,50 @@ def light_sample_picked(surf_pos, lights: Lights, li: torch.Tensor):
     One gathered evaluation of the stochastic single-light estimator.
     Returns (light_dir (N,3), atten (N,), valid (N,), dist (N,), color
     (N,3), is_directional (N,))."""
-    li = li.long()
-    typ = lights.type[li]
-    is_dir = typ == LIGHT_DIRECTIONAL
-    to_light = lights.position[li] - surf_pos
-    dist = torch.linalg.vector_norm(to_light, dim=-1)
-    pdir = to_light / torch.clamp_min(dist, 1e-12)[:, None]
-    ldirn = lights.direction[li]
-    ldir = torch.where(is_dir[:, None], ldirn, pdir)
-    atten = distance_attenuation(dist, lights.range[li],
-                                 lights.attenuation[li])
-    spot = spot_attenuation(-pdir, ldirn, lights.spot_angle[li],
-                            lights.spot_atten[li])
-    atten = torch.where(typ == LIGHT_SPOT, atten * spot, atten)
-    atten = torch.where(is_dir, 1.0, atten)
-    valid = is_dir | ((dist > 1e-6) & (dist <= lights.range[li]))
-    valid = valid & (atten >= 1e-6)
-    return ldir, atten, valid, dist, lights.color[li], is_dir
+    with span("light.direction"):
+        li = li.long()
+        typ = lights.type[li]
+        is_dir = typ == LIGHT_DIRECTIONAL
+        to_light = lights.position[li] - surf_pos
+        dist = torch.linalg.vector_norm(to_light, dim=-1)
+        pdir = to_light / torch.clamp_min(dist, 1e-12)[:, None]
+        ldirn = lights.direction[li]
+        ldir = torch.where(is_dir[:, None], ldirn, pdir)
+    with span("light.falloff"):
+        atten = distance_attenuation(dist, lights.range[li],
+                                     lights.attenuation[li])
+    with span("light.spot"):
+        spot = spot_attenuation(-pdir, ldirn, lights.spot_angle[li],
+                                lights.spot_atten[li])
+    with span("light.valid"):
+        atten = torch.where(typ == LIGHT_SPOT, atten * spot, atten)
+        atten = torch.where(is_dir, 1.0, atten)
+        valid = is_dir | ((dist > 1e-6) & (dist <= lights.range[li]))
+        valid = valid & (atten >= 1e-6)
+        return ldir, atten, valid, dist, lights.color[li], is_dir
 
 
 def cook_torrance_single(surf: Surface, ldir, radiance):
     """Cook-Torrance BRDF x radiance x n_dot_l for one light direction per
     pixel.  Returns (contrib (N,3), n_dot_l (N,)); the caller applies
     validity/shadow masks."""
-    n_dot_l = (surf.normal * ldir).sum(dim=-1)
-    h = _unit(surf.view_dir + ldir)
-    n_dot_h = torch.clamp_min((surf.normal * h).sum(dim=-1), 0.0)
-    v_dot_h = torch.clamp_min((surf.view_dir * h).sum(dim=-1), 0.0)
-    d_term = distribution_ggx(n_dot_h, surf.roughness)
-    g_term = geometry_smith_ggx(surf.n_dot_v, n_dot_l, surf.roughness)
-    f = fresnel_schlick(v_dot_h[:, None], surf.f0)
-    spec_scale = (d_term * g_term
-                  / (4.0 * surf.n_dot_v * n_dot_l + 1e-7))[:, None]
-    contrib = ((surf.diff * (1.0 - f) / PI + f * spec_scale) * radiance
-               * n_dot_l[:, None])
-    return contrib, n_dot_l
+    with span("brdf.angles"):
+        n_dot_l = (surf.normal * ldir).sum(dim=-1)
+        h = _unit(surf.view_dir + ldir)
+        n_dot_h = torch.clamp_min((surf.normal * h).sum(dim=-1), 0.0)
+        v_dot_h = torch.clamp_min((surf.view_dir * h).sum(dim=-1), 0.0)
+    with span("brdf.ndf"):
+        d_term = distribution_ggx(n_dot_h, surf.roughness)
+    with span("brdf.geometry"):
+        g_term = geometry_smith_ggx(surf.n_dot_v, n_dot_l, surf.roughness)
+    with span("brdf.fresnel"):
+        f = fresnel_schlick(v_dot_h[:, None], surf.f0)
+        spec_scale = (d_term * g_term
+                      / (4.0 * surf.n_dot_v * n_dot_l + 1e-7))[:, None]
+    with span("brdf.sum"):
+        contrib = ((surf.diff * (1.0 - f) / PI + f * spec_scale) * radiance
+                   * n_dot_l[:, None])
+        return contrib, n_dot_l
 
 
 def cook_torrance_multi_light(surf: Surface, lights: Lights,

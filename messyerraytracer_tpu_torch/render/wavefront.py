@@ -21,6 +21,13 @@ re-sorted once per bounce by the next extend rays' octant-major key and
 the waves stay in that order.  The sort covers the whole wave: dead rays
 get the maximal key, so they follow the live ones in their input order,
 which is the permutation the JAX package's live-prefix buckets compute.
+
+While a profiler records, a frame runs inside the span ``wavefront.frame``
+and each stage inside its own: ``wavefront.generate``, ``.extend``,
+``.shade``, ``.connect``, ``.sort`` (every coherence sort: a wave's, or the
+carried path state's) and ``.finalize``; each wave adds the rays it hands
+to a cast to the counter ``wavefront.slots`` and its live rays (active
+extend rays, valid shadow rays) to ``wavefront.live`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +35,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from ..core.types import Rays
 from ..dispatch.morton import (
@@ -38,6 +44,7 @@ from ..dispatch.morton import (
     unshuffle_flags,
     unshuffle_hits,
 )
+from ..utils.trace import span
 from .pathtrace import (
     PI,  # noqa: F401  (the JAX module's public constant, kept in one place)
     SHADOW_EPS,
@@ -48,6 +55,7 @@ from .pathtrace import (
     russian_roulette,
     sample_bounce,
 )
+from ..utils.trace import count, span
 from .shade import (
     EnvironmentData,
     Lights,
@@ -84,7 +92,7 @@ class WavefrontState:
         and the extend rays' t range are kept as they are (all rays of a
         wave share them).  Runs inside the profiler range
         ``wavefront.take``."""
-        with record_function("wavefront.take"):
+        with span("wavefront.take"):
             return WavefrontState(
                 throughput=self.throughput[perm],
                 accum=self.accum[perm],
@@ -136,100 +144,125 @@ class WavefrontPathTracer:
     def generate(self, rays: Rays, sample_index: int) -> WavefrontState:
         n = rays.count
         dev = rays.origin.device
-        z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        f = torch.zeros((n,), dtype=torch.bool, device=dev)
+        with span("wavefront.generate"):
+            z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+            f = torch.zeros((n,), dtype=torch.bool, device=dev)
+            throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
+            active = torch.ones((n,), dtype=torch.bool, device=dev)
         return WavefrontState(
-            throughput=torch.ones((n, 3), dtype=torch.float32, device=dev),
-            accum=z3, pending_nee=z3,
-            rng=pixel_seeds(n, sample_index, dev),
-            active=torch.ones((n,), dtype=torch.bool, device=dev),
+            throughput=throughput, accum=z3, pending_nee=z3,
+            rng=pixel_seeds(n, sample_index, dev), active=active,
             ray=rays, shadow_ray=rays, shadow_valid=f, visibility=f)
 
     # ---- Extend ---------------------------------------------------------
     def extend(self, state: WavefrontState, sort: bool = False):
-        cast = dead_unless(state.ray, state.active)
-        if sort and self.bounds is not None:
-            sorted_rays, perm = sort_rays_6d(cast, *self.bounds)
+        with span("wavefront.extend"):
+            cast = dead_unless(state.ray, state.active)
+            if not (sort and self.bounds is not None):
+                return self.scene.cast_rays(cast)[0]
+            with span("wavefront.sort"):
+                sorted_rays, perm = sort_rays_6d(cast, *self.bounds)
             hits, _ = self.scene.cast_rays(sorted_rays, incoherent=True)
             return unshuffle_hits(hits, perm)
-        hits, _ = self.scene.cast_rays(cast)
-        return hits
 
     # ---- Connect --------------------------------------------------------
     def connect(self, state: WavefrontState,
                 sort: bool = False) -> WavefrontState:
-        if sort and self.bounds is not None:
-            sorted_rays, perm = sort_rays_6d(state.shadow_ray, *self.bounds)
-            occluded = unshuffle_flags(
-                self.scene.any_hit_rays(sorted_rays, incoherent=True), perm)
-        else:
-            occluded = self.scene.any_hit_rays(state.shadow_ray)
-        return state.replace(visibility=~occluded & state.shadow_valid)
+        with span("wavefront.connect"):
+            if sort and self.bounds is not None:
+                with span("wavefront.sort"):
+                    sorted_rays, perm = sort_rays_6d(state.shadow_ray,
+                                                     *self.bounds)
+                occluded = unshuffle_flags(
+                    self.scene.any_hit_rays(sorted_rays, incoherent=True),
+                    perm)
+            else:
+                occluded = self.scene.any_hit_rays(state.shadow_ray)
+            with span("connect.visibility"):
+                return state.replace(
+                    visibility=~occluded & state.shadow_valid)
 
     # ---- Shade ----------------------------------------------------------
     def shade(self, state: WavefrontState, hits, bounce: int,
               max_bounces: int) -> WavefrontState:
+        with span("wavefront.shade"):
+            return self._shade(state, hits, bounce, max_bounces)
+
+    def _shade(self, state: WavefrontState, hits, bounce: int,
+               max_bounces: int) -> WavefrontState:
         n = state.rng.shape[0]
         dev = state.rng.device
         # 1) resolve the previous bounce's deferred NEE
-        accum = _finalize(state)
-
-        hit = hits.hit & state.active
-        sky = sky_color(state.ray.direction, self.env)
-        accum = accum + torch.where((state.active & ~hits.hit)[:, None],
-                                    state.throughput * sky, 0.0)
-
-        surf = extract_surface(hits, state.ray.direction, self.materials,
-                               self._mat_ids(hits), attrs=self.attributes,
-                               atlas=self.atlas)
-        accum = accum + torch.where(hit[:, None],
-                                    state.throughput * surf.emission, 0.0)
+        with span("shade.resolve"):
+            accum = _finalize(state)
+            hit = hits.hit & state.active
+            pending = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+            shadow_valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+        with span("shade.sky"):
+            sky = sky_color(state.ray.direction, self.env)
+        with span("shade.miss"):
+            accum = accum + torch.where((state.active & ~hits.hit)[:, None],
+                                        state.throughput * sky, 0.0)
+        with span("shade.surface"):
+            surf = extract_surface(hits, state.ray.direction,
+                                   self.materials, self._mat_ids(hits),
+                                   attrs=self.attributes, atlas=self.atlas)
+        with span("shade.emission"):
+            accum = accum + torch.where(hit[:, None],
+                                        state.throughput * surf.emission,
+                                        0.0)
 
         # 2) stochastic single-light NEE -> pending, with its shadow ray
         rng = state.rng
-        pending = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        shadow_valid = torch.zeros((n,), dtype=torch.bool, device=dev)
         shadow_ray = state.shadow_ray
         if self.lights is not None and self.lights.count > 0:
             count = self.lights.count
-            rng, u_pick = pcg32_float(rng)
-            li_pick = torch.clamp_max((u_pick * count).to(torch.int64),
-                                      count - 1)
-            ldir, atten, lvalid, dist, lcolor, is_dir = light_sample_picked(
-                surf.position, self.lights, li_pick)
-            contrib, n_dot_l = cook_torrance_single(
-                surf, ldir, lcolor * atten[:, None])
-            lvalid = lvalid & (n_dot_l > 0.0)
-            contrib = torch.where(lvalid[:, None], contrib, 0.0)
-            # x light count to unbias the uniform pick
-            pending = state.throughput * contrib * float(count)
-            shadow_valid = hit & lvalid
-            tmax = torch.where(is_dir, 1e30, dist - 2.0 * SHADOW_EPS)
-            shadow_ray = Rays(
-                origin=hits.position + surf.normal * SHADOW_EPS,
-                direction=ldir,
-                t_min=torch.full((n,), SHADOW_EPS, dtype=torch.float32,
-                                 device=dev),
-                t_max=torch.where(shadow_valid, tmax, -1.0))
-            pending = torch.where(shadow_valid[:, None], pending, 0.0)
+            with span("shade.light"):
+                rng, u_pick = pcg32_float(rng)
+                li_pick = torch.clamp_max(
+                    (u_pick * count).to(torch.int64), count - 1)
+                ldir, atten, lvalid, dist, lcolor, is_dir = \
+                    light_sample_picked(surf.position, self.lights, li_pick)
+            with span("shade.brdf"):
+                contrib, n_dot_l = cook_torrance_single(
+                    surf, ldir, lcolor * atten[:, None])
+            with span("shade.pending"):
+                lvalid = lvalid & (n_dot_l > 0.0)
+                contrib = torch.where(lvalid[:, None], contrib, 0.0)
+                # x light count to unbias the uniform pick
+                pending = state.throughput * contrib * float(count)
+                shadow_valid = hit & lvalid
+                tmax = torch.where(is_dir, 1e30, dist - 2.0 * SHADOW_EPS)
+            with span("shade.shadow"):
+                shadow_ray = Rays(
+                    origin=hits.position + surf.normal * SHADOW_EPS,
+                    direction=ldir,
+                    t_min=torch.full((n,), SHADOW_EPS, dtype=torch.float32,
+                                     device=dev),
+                    t_max=torch.where(shadow_valid, tmax, -1.0))
+                pending = torch.where(shadow_valid[:, None], pending, 0.0)
 
         # 3) sample the bounce
-        rng, bdir, bweight, bvalid = sample_bounce(surf, rng)
-        active = hit & bvalid
-        throughput = torch.where(active[:, None],
-                                 state.throughput * bweight,
-                                 state.throughput)
+        with span("shade.bounce"):
+            rng, bdir, bweight, bvalid = sample_bounce(surf, rng)
+        with span("shade.throughput"):
+            active = hit & bvalid
+            throughput = torch.where(active[:, None],
+                                     state.throughput * bweight,
+                                     state.throughput)
 
         # 4) Russian roulette from bounce 2
         if bounce >= 1:
-            throughput, active, rng = russian_roulette(throughput, active,
-                                                       rng)
+            with span("shade.roulette"):
+                throughput, active, rng = russian_roulette(throughput,
+                                                           active, rng)
 
-        return WavefrontState(
-            throughput=throughput, accum=accum, pending_nee=pending,
-            rng=rng, active=active, ray=bounce_rays(hits, surf, bdir),
-            shadow_ray=shadow_ray, shadow_valid=shadow_valid,
-            visibility=torch.zeros((n,), dtype=torch.bool, device=dev))
+        with span("shade.rays"):
+            return WavefrontState(
+                throughput=throughput, accum=accum, pending_nee=pending,
+                rng=rng, active=active, ray=bounce_rays(hits, surf, bdir),
+                shadow_ray=shadow_ray, shadow_valid=shadow_valid,
+                visibility=torch.zeros((n,), dtype=torch.bool, device=dev))
 
     # ---- frame orchestration ------------------------------------------
     def trace_frame(self, rays: Rays, max_bounces: int = 3,
@@ -248,21 +281,39 @@ class WavefrontPathTracer:
                             carried: bool | None = None):
         if carried is None:
             carried = self.bounds is not None
-        if carried:
-            return self._trace_frame_carried(rays, max_bounces,
-                                             sample_index, with_counts)
+        frame = (self._trace_frame_carried if carried
+                 else self._trace_frame_waves)
+        with span("wavefront.frame"):
+            return frame(rays, max_bounces, sample_index, with_counts)
+
+    @staticmethod
+    def _wave(wave_rays: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        """``wave_rays`` plus a wave's live rays (``live``: its mask over
+        the wave's slots), both also added to the counters."""
+        with span("wavefront.count"):
+            k = live.sum()
+            count("wavefront.slots", live.shape[0])
+            count("wavefront.live", k)
+            return wave_rays + k
+
+    def _trace_frame_waves(self, rays: Rays, max_bounces: int,
+                           sample_index: int, with_counts: bool):
+        """Per-wave-sorted frame: each wave is sorted on its own and
+        unshuffled after its cast."""
         state = self.generate(rays, sample_index)
-        wave_rays = torch.zeros((), dtype=torch.int64,
-                                device=rays.origin.device)
+        with span("wavefront.generate"):
+            wave_rays = torch.zeros((), dtype=torch.int64,
+                                    device=rays.origin.device)
         for bounce in range(max_bounces + 1):
             # bounce-0 primaries are camera-coherent already; later
             # waves get the octant-major coherence sort
             hits = self.extend(state, sort=bounce > 0)
-            wave_rays = wave_rays + state.active.sum()
+            wave_rays = self._wave(wave_rays, state.active)
             state = self.shade(state, hits, bounce, max_bounces)
-            wave_rays = wave_rays + state.shadow_valid.sum()
+            wave_rays = self._wave(wave_rays, state.shadow_valid)
             state = self.connect(state, sort=bounce > 0)
-        accum = _finalize(state)
+        with span("wavefront.finalize"):
+            accum = _finalize(state)
         return (accum, wave_rays) if with_counts else accum
 
     def _trace_frame_carried(self, rays: Rays, max_bounces: int,
@@ -276,34 +327,43 @@ class WavefrontPathTracer:
         result equals the per-wave-sorted frame up to the order of exact-t
         ties and of float additions."""
         state = self.generate(rays, sample_index)
-        n = rays.count
-        pix = torch.arange(n, device=rays.origin.device)
-        wave_rays = torch.zeros((), dtype=torch.int64,
-                                device=rays.origin.device)
+        with span("wavefront.generate"):
+            pix = torch.arange(rays.count, device=rays.origin.device)
+            wave_rays = torch.zeros((), dtype=torch.int64,
+                                    device=rays.origin.device)
         for bounce in range(max_bounces + 1):
-            hits, _ = self.scene.cast_rays(
-                dead_unless(state.ray, state.active), incoherent=bounce > 0)
-            wave_rays = wave_rays + state.active.sum()
+            with span("wavefront.extend"):
+                hits, _ = self.scene.cast_rays(
+                    dead_unless(state.ray, state.active),
+                    incoherent=bounce > 0)
+            wave_rays = self._wave(wave_rays, state.active)
             state = self.shade(state, hits, bounce, max_bounces)
-            wave_rays = wave_rays + state.shadow_valid.sum()
-            if bounce > 0:
-                sperm = sort_perm_6d(state.shadow_ray, *self.bounds,
-                                     live=state.shadow_valid)
-                occ_s = self.scene.any_hit_rays(
-                    apply_permutation(state.shadow_ray, sperm),
-                    incoherent=True)
-                occluded = unshuffle_flags(occ_s, sperm)
-            else:
-                occluded = self.scene.any_hit_rays(state.shadow_ray)
-            state = state.replace(visibility=~occluded & state.shadow_valid)
+            wave_rays = self._wave(wave_rays, state.shadow_valid)
+            with span("wavefront.connect"):
+                if bounce > 0:
+                    with span("wavefront.sort"):
+                        sperm = sort_perm_6d(state.shadow_ray, *self.bounds,
+                                             live=state.shadow_valid)
+                    occ_s = self.scene.any_hit_rays(
+                        apply_permutation(state.shadow_ray, sperm),
+                        incoherent=True)
+                    occluded = unshuffle_flags(occ_s, sperm)
+                else:
+                    occluded = self.scene.any_hit_rays(state.shadow_ray)
+                with span("connect.visibility"):
+                    state = state.replace(
+                        visibility=~occluded & state.shadow_valid)
             if bounce < max_bounces:
-                perm = sort_perm_6d(state.ray, *self.bounds,
-                                    live=state.active)
-                state = state.take(perm)
-                pix = pix[perm]
-        accum = _finalize(state)
-        out = torch.empty_like(accum)
-        out[pix] = accum        # one final scatter back to pixel order
+                with span("wavefront.sort"):
+                    perm = sort_perm_6d(state.ray, *self.bounds,
+                                        live=state.active)
+                    state = state.take(perm)
+                    with span("wavefront.pixels"):
+                        pix = pix[perm]
+        with span("wavefront.finalize"):
+            accum = _finalize(state)
+            out = torch.empty_like(accum)
+            out[pix] = accum        # one final scatter back to pixel order
         return (out, wave_rays) if with_counts else out
 
     def trace_frame_srgb(self, rays: Rays, max_bounces: int = 3,

@@ -24,7 +24,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..accel.bvh import BVH, _bvh_host, build_bvh, refit_bvh
 from ..accel.frontier import (
@@ -58,6 +57,7 @@ from ..kernels.wide import (
     build_wide_scene,
     refresh_wide_scene,
 )
+from ..utils.trace import span
 
 BACKENDS = ("cluster", "pallas", "frontier", "frontier_q", "jnp", "brute")
 
@@ -176,7 +176,7 @@ def _refit_slots(scene: RayScene, v0, v1, v2) -> RayScene:
     v0, v0 + e1 and v0 + e2 as the JAX package does, the BVH refit, then
     the wide and cluster tables refreshed, the frontier tables left to be
     built anew.  Nothing of ``scene`` is written."""
-    with record_function("refit.scene"):
+    with span("refit.scene"):
         v0, e1, e2, nrm = triangle_fields(v0, v1, v2)
         tris = Triangles(v0=v0, edge1=e1, edge2=e2, normal=nrm,
                          prim_id=scene.tris.prim_id,

@@ -75,3 +75,30 @@ def test_scene_builds_share_one_tree(backend):
               "split_axis"):
         np.testing.assert_array_equal(np_of(getattr(ps.bvh, f)),
                                       np_of(getattr(js.bvh, f)), err_msg=f)
+
+
+def test_a_changed_build_command_rebuilds(tmp_path, monkeypatch):
+    """A cached library is reused only when its source is older and its
+    build command is the same: another flag builds it anew."""
+    import sys
+
+    monkeypatch.setattr(pnative, "BUILD_DIR", str(tmp_path / "build"))
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    runs = tmp_path / "runs"
+    # a stand-in compiler: writes the flags it got and counts its runs
+    fake = [sys.executable, "-c",
+            "import sys; a = sys.argv[1:]; o = a[a.index('-o') + 1]; "
+            "open(o, 'w').write(' '.join(a[:a.index('-o')])); "
+            f"open({str(runs)!r}, 'a').write('x')"]
+    out = pnative.build_shared_library(fake + ["-O3"], [str(src)], "k.so")
+    assert pnative.build_shared_library(fake + ["-O3"], [str(src)],
+                                        "k.so") == out
+    assert runs.read_text() == "x"
+    pnative.build_shared_library(fake + ["-O3", "-cudart", "shared"],
+                                 [str(src)], "k.so")
+    assert runs.read_text() == "xx"
+    assert open(out).read() == "-O3 -cudart shared"
+    pnative.build_shared_library(fake + ["-O3", "-cudart", "shared"],
+                                 [str(src)], "k.so")
+    assert runs.read_text() == "xx"
