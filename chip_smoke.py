@@ -196,8 +196,9 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def build_kernels(card: str) -> None:
-    """Build both kernel libraries, one nvcc each, started together."""
-    from messyerraytracer_tpu_torch.kernels import cluster_v2, traverse_pallas
+    """Build the three kernel libraries, one nvcc each, started together."""
+    from messyerraytracer_tpu_torch.kernels import (cluster_tlas, cluster_v2,
+                                                    traverse_pallas)
 
     t0 = time.time()
     errors = []
@@ -209,14 +210,14 @@ def build_kernels(card: str) -> None:
             errors.append(e)
 
     threads = [threading.Thread(target=build, args=(m,))
-               for m in (cluster_v2, traverse_pallas)]
+               for m in (cluster_v2, traverse_pallas, cluster_tlas)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    print(f"[{card}] kernel build {time.time() - t0} s (2 nvcc in "
+    print(f"[{card}] kernel build {time.time() - t0} s (3 nvcc in "
           f"parallel)", flush=True)
 
 
@@ -831,9 +832,10 @@ def device_split(fn, ranges) -> dict:
              "device events": len(on_device)}
     launches = [((b - a) / 1e3, label) for a, b, name in on_device
                 for label, kernel in (("B1", "cluster_cast_kernel"),
-                                      ("B4", "wide_cast_kernel"))
+                                      ("B4", "wide_cast_kernel"),
+                                      ("refit", "tlas_refit_kernel"))
                 if kernel in name]
-    for label in ("B1", "B4"):
+    for label in ("B1", "B4", "refit"):
         split[f"{label} launches"] = [ms for ms, k in launches if k == label]
         split[f"{label} kernel"] = sum(split[f"{label} launches"])
     for name in ranges:
@@ -1379,6 +1381,52 @@ def twin_vs_instanced(hf, hi, rays, world_tris):
     return same, summary
 
 
+REFIT_ITERS = 2000       # launches of the refit kernel timed together
+
+
+def time_refit_kernel(card: str, ct) -> tuple:
+    """The refit kernel on ``ct``'s shapes against its plain version,
+    bit for bit, then timed: the kernel alone (its C entry on outputs
+    allocated once) and the wrapper as ``set_transforms`` calls it, each
+    fenced by CUDA events over REFIT_ITERS launches, and the plain
+    version.  Returns ms: (kernel, wrapper, plain, bound).  The bound
+    counts each table read once and each output written once (the
+    arrival counters twice)."""
+    import torch
+
+    from messyerraytracer_tpu_torch.kernels import cluster_tlas as ctl
+
+    rows = torch.as_tensor(ct.inst_rows, device=ct.node_box.device)
+    out, ref = ctl.refit_pairs_cuda(ct, rows), ctl._refit_pairs_plain(ct,
+                                                                      rows)
+    for k, a, b in (("aabb_min", out[0].aabb_min, ref[0].aabb_min),
+                    ("aabb_max", out[0].aabb_max, ref[0].aabb_max),
+                    ("node_box", out[1], ref[1]), ("iinv", out[2], ref[2]),
+                    ("ifwd", out[3], ref[3])):
+        check(bit_equal(a, b), f"refit kernel {k} == plain bit for bit")
+    check(not bool(ct.pair_arrivals.any()), "arrival counters back at 0")
+    args, outs = ctl._refit_kernel_args(ct, rows)
+    bvh = ct.pair_bvh
+    moved = nbytes(rows, ct.pair_obj_min, ct.pair_obj_max, ct.pair_inst,
+                   bvh.tri_order, bvh.left_first, bvh.count, ct.pair_parent,
+                   ct.pair_slot, ct.child_node, ct.pair_arrivals,
+                   ct.pair_arrivals, *outs)
+    bound_ms, what = bound(moved, 0)
+    lib, stream = ctl.cuda_library(), torch.cuda.current_stream().cuda_stream
+    kernel_ms = cuda_ms(lambda: lib.mrt_tlas_refit(*args, stream),
+                        REFIT_ITERS)
+    wrapper_ms = cuda_ms(lambda: ctl.refit_pairs_cuda(ct, rows), REFIT_ITERS)
+    plain_ms = cuda_ms(lambda: ctl._refit_pairs_plain(ct, rows), 20)
+    check(not bool(ct.pair_arrivals.any()), "arrival counters back at 0")
+    print(f"[{card}] refit kernel: {bvh.num_nodes} nodes, {bvh.num_tris} "
+          f"pairs, {ct.n_inst} instances; alone {kernel_ms} ms a launch, "
+          f"through its wrapper {wrapper_ms} ms a call (CUDA events over "
+          f"{REFIT_ITERS}); bound {bound_ms} ms ({moved} bytes, {what}); "
+          f"plain version {plain_ms} ms; wrapper launches so far "
+          f"{ctl.refit_pairs_cuda.launches}", flush=True)
+    return kernel_ms, wrapper_ms, plain_ms, bound_ms
+
+
 def phase_dynamic(card: str, device, ctx: dict) -> dict:
     """Phase 6: dynamic scenes, debug draw modes and checkpoints at full
     size.  Returns B1's and B4's launches from its paths' own runs."""
@@ -1392,7 +1440,7 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
     from messyerraytracer_tpu_torch.core.brute import cast_rays_brute, parity
     from messyerraytracer_tpu_torch.debug import debug as dbg
     from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
-        set_transforms)
+        refit_pairs_cuda, set_transforms)
     from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
         cluster_cast_cuda, cluster_cast_plain)
     from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
@@ -1419,8 +1467,11 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
     moves = headline_moves(tlas)
     check(len(moves) == 100, f"100 moves ({len(moves)})")
     cpu_ct = to_device(tlas._ctlas, torch.device("cpu"))
+    refit_pairs_cuda.launches = 0
     _, move_s = sync_s(lambda: [tlas.set_transform(k, m)
                                 for k, m in moves.items()])
+    lr = refit_pairs_cuda.launches
+    check(lr == 100, f"(a) one refit launch per set_transform ({lr})")
     k0 = next(iter(moves))
     split_a = device_split(lambda: tlas.set_transform(k0, moves[k0]),
                            ("refit.set_transforms",))
@@ -1432,6 +1483,8 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
     for f in ("aabb_min", "aabb_max"):
         check(bit_equal(getattr(ct.pair_bvh, f), getattr(ref_ct.pair_bvh, f)),
               f"pair tree {f}: card == CPU bit for bit")
+    refit_ms, refit_call_ms, refit_plain_ms, refit_bound = \
+        time_refit_kernel(card, ct)
     cluster_cast_cuda.launches = 0
     hi, si, _, inst = tlas.cast_rays_instanced(rays)
     torch.cuda.synchronize()
@@ -1450,7 +1503,10 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
     check(hit_moved > 0, "(a) the frame sees moved instances")
     err, plain_ms, st = compare_kernel_plain(part, ct, chunk=1 << 20)
     print(f"[{card}] phase 6a set_transform x100: {move_s * 1e3} ms wall "
-          f"({move_s * 10} ms a call); one call under torch.profiler "
+          f"({move_s * 10} ms a call), refit kernel launches {lr}; the "
+          f"kernel alone {refit_ms} ms a launch ({refit_call_ms} through "
+          f"its wrapper) against its bound {refit_bound} ms, its plain "
+          f"version {refit_plain_ms} ms; one call under torch.profiler "
           f"{json.dumps(split_a)}; tables card == CPU bit for bit; frame: "
           f"B1 launches {la}, hit_rate {float(hi.hit.float().mean())}, "
           f"{hit_moved} pixels on moved instances, parity vs brute (4096 "

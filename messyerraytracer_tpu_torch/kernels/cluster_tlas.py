@@ -14,22 +14,29 @@ PyTorch counterpart of ``messyerraytracer_tpu/kernels/cluster_tlas.py``
     space at each cluster visit (no renormalization, so t stays in world
     units); the hit normal goes back through the inverse-transpose.
 
-``set_transforms`` moves instances on the device: the pair boxes are
-pushed through the new transforms, the pair tree is refit and the node
-boxes regathered; the object-space cluster tables stay as they are.
+``set_transforms`` moves instances: the host redoes the float64 inverse of
+the instances whose transform changed and uploads every instance's rows in
+one copy; on a card one launch of ``csrc/tlas_refit.cu`` then pushes the
+pair boxes through the new transforms, refits the pair tree and regathers
+the node boxes (``refit_pairs_cuda``), on the CPU the plain PyTorch version
+does the same (``_refit_pairs_plain``).  The object-space cluster tables
+stay as they are.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
+import os
+import threading
 
 import numpy as np
 import torch
 
 from ..accel.bvh import BVH, build_bvh, build_bvh_over_aabbs, refit_bvh
 from ..core.types import ALL_LAYERS, DEFAULT_DEVICE
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .cluster import (
     LOCAL_BITS,
     LOCAL_MASK,
@@ -43,6 +50,7 @@ from .cluster import (
 from .wide import _child_boxes, _upper_node_tables
 
 MAX_INSTANCES = 1 << (23 - LOCAL_BITS)   # 1024
+ROW = 33    # an instance's host row: forward [R | t] 12, iinv 12, ifwd 9
 
 
 @dataclasses.dataclass
@@ -63,6 +71,18 @@ class ClusterTLAS(ClusterScene):
                nodes
     pair_obj_min / pair_obj_max (P, 3) f32 — each pair's object-space
                cluster box;  pair_inst (P,) i32 — its instance
+    pair_parent (M,) i32 — each pair-tree node's parent, -1 at the root
+    pair_slot  (M,) i32 — the flat index into ``child_node`` of the slot
+               that holds the node, -1 where none does
+    pair_arrivals (M,) i32 — the refit kernel's arrival counters, all 0
+               between launches (shared by the tables ``set_transforms``
+               derives from these: launches on them run in stream order)
+    inst_mat   (Ni, 12) float64 host array — the transforms [R | t] the
+               rows below were computed from (what ``set_transforms``
+               compares: two float64 transforms that round to the same
+               float32 rows still have different inverses)
+    inst_rows  (Ni, ROW) float32 host array — per instance the forward
+               rows, ``iinv`` and ``ifwd``, as uploaded
     """
 
     inst_cbase: torch.Tensor
@@ -75,6 +95,11 @@ class ClusterTLAS(ClusterScene):
     pair_obj_min: torch.Tensor | None = None
     pair_obj_max: torch.Tensor | None = None
     pair_inst: torch.Tensor | None = None
+    pair_parent: torch.Tensor | None = None
+    pair_slot: torch.Tensor | None = None
+    pair_arrivals: torch.Tensor | None = None
+    inst_mat: np.ndarray | None = None
+    inst_rows: np.ndarray | None = None
 
     @property
     def pair_bounds(self) -> tuple | None:
@@ -86,15 +111,28 @@ class ClusterTLAS(ClusterScene):
 
 
 def _to_mat34(t) -> np.ndarray:
-    """Accept a (3,4), (4,4), or (3,3)+implicit-0 transform -> (3,4)."""
+    """Accept a (3,4), (4,4), or (3,3)+implicit-0 transform -> (3,4), or a
+    stack of one of them -> (..., 3, 4)."""
     t = np.asarray(t, np.float64)  # lint: off: host-side inverse precision
-    if t.shape == (4, 4):
-        return t[:3, :]
-    if t.shape == (3, 4):
+    if t.shape[-2:] == (4, 4):
+        return t[..., :3, :]
+    if t.shape[-2:] == (3, 4):
         return t
-    if t.shape == (3, 3):
-        return np.concatenate([t, np.zeros((3, 1))], axis=1)
+    if t.shape[-2:] == (3, 3):
+        return np.concatenate([t, np.zeros(t.shape[:-1] + (1,))], axis=-1)
     raise ValueError(f"transform shape {t.shape} unsupported")
+
+
+def _mat34s(transforms: list) -> np.ndarray:
+    """(Ni, 12) float64 [R | t] rows of the transforms, each as
+    ``_to_mat34`` reads it; one stacking call when they share a shape."""
+    shapes = {getattr(t, "shape", None) for t in transforms}
+    if len(shapes) == 1 and None not in shapes:     # arrays of one shape
+        # float64, as _to_mat34 reads each: the host inverse's precision
+        mats = _to_mat34(np.asarray(transforms, np.float64))  # lint: off
+    else:
+        mats = np.stack([_to_mat34(t) for t in transforms])
+    return np.ascontiguousarray(mats.reshape(len(transforms), 12))
 
 
 def _inst_tables(transforms: list):
@@ -166,8 +204,52 @@ def _pair_world_aabbs(obj_min, obj_max, m):
 
 def _fwd_rows(transforms: list) -> np.ndarray:
     """(Ni, 12) float32 forward [R | t] rows of the instance transforms."""
-    return np.stack([_to_mat34(t).astype(np.float32).reshape(-1)
-                     for t in transforms])
+    return _mat34s(transforms).astype(np.float32)
+
+
+def _inst_rows(transforms: list, mat: np.ndarray) -> np.ndarray:
+    """(Ni, ROW) float32 host rows [forward | iinv | ifwd] of the
+    transforms, whose ``_mat34s`` is ``mat``: ``_fwd_rows`` and
+    ``_inst_tables``, side by side."""
+    iinv, ifwd = _inst_tables(transforms)
+    return np.concatenate([mat.astype(np.float32), iinv[:, :12], ifwd],
+                          axis=1)
+
+
+def _update_rows(ct: "ClusterTLAS", transforms: list) -> tuple:
+    """(inst_mat, inst_rows) of ``transforms``: ``ct``'s rows, redone by
+    ``_inst_rows`` only where a transform's float64 bits changed, so the
+    table equals a full recompute bit for bit.  ``ct``'s arrays are not
+    written."""
+    mat = _mat34s(transforms)
+    changed = np.flatnonzero(
+        (mat.view(np.uint64) != ct.inst_mat.view(np.uint64)).any(axis=1))
+    rows = ct.inst_rows.copy()
+    if changed.size:
+        rows[changed] = _inst_rows([transforms[i] for i in changed],
+                                   mat[changed])
+    count("refit.inverse_rows", changed.size)
+    return mat, rows
+
+
+def _pair_refit_tables(lf, cnt, kids) -> tuple:
+    """(parent (M,), slot (M,)) int32 of a pair tree in DFS order (left
+    child ``node + 1``, right ``lf[node]`` of an internal node) and its
+    (W, 8) child-slot table ``kids``: each node's parent (-1 at the root)
+    and the flat index of the slot that holds it (-1 where none does).
+    Raises if a node sits in two slots: the refit kernel writes one."""
+    m = len(cnt)
+    inner = np.flatnonzero(cnt == 0)
+    parent = np.full(m, -1, np.int32)
+    parent[inner + 1] = inner
+    parent[lf[inner]] = inner
+    flat = kids.reshape(-1)
+    present = np.flatnonzero(flat >= 0)
+    if present.size and np.bincount(flat[present], minlength=m).max() > 1:
+        raise ValueError("a pair-tree node sits in two child slots")
+    slot = np.full(m, -1, np.int32)
+    slot[flat[present]] = present
+    return parent, slot
 
 
 def build_cluster_tlas(mesh_tris: list, instances: list,
@@ -227,8 +309,10 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
         cbases.append(total_c)
         total_c += meta["num_clusters"]
 
-    fwd_rows = _fwd_rows(transforms)
-    iinv, ifwd = _inst_tables(transforms)
+    inst_mat = _mat34s(transforms)
+    inst_rows = _inst_rows(transforms, inst_mat)
+    count("refit.inverse_rows", ni)
+    fwd_rows = inst_rows[:, :12]
     # flattened-scene global prim-id base per instance
     iprim = np.cumsum([0] + [len(mesh_tris[m]) for m in mesh_ids[:-1]]
                       ).astype(np.int32)
@@ -256,6 +340,7 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
     node_box, node_child, node_axis, nw, stack_need, kids = \
         _upper_node_tables(host["aabb_min"], host["aabb_max"], lf, cnt,
                            is_leaf, gid_of_node)
+    parent, slot = _pair_refit_tables(lf, cnt, kids)
 
     tables = {k: np.concatenate([g[k] for g in groups])
               for k in ("tri", "tri_prim", "tri_layers", "cl_anchor",
@@ -263,23 +348,29 @@ def build_cluster_tlas(mesh_tris: list, instances: list,
     tables.update(
         node_box=node_box, node_child=node_child, node_axis=node_axis,
         inst_cbase=np.asarray([cbases[g] for g in group_inst], np.int32),
-        iprim=iprim, iinv=iinv[:, :12], ifwd=ifwd, child_node=kids,
-        pair_obj_min=pobj[:, 0:3], pair_obj_max=pobj[:, 3:6],
-        pair_inst=pinst)
+        iprim=iprim, iinv=inst_rows[:, 12:24], ifwd=inst_rows[:, 24:],
+        child_node=kids, pair_obj_min=pobj[:, 0:3],
+        pair_obj_max=pobj[:, 3:6], pair_inst=pinst, pair_parent=parent,
+        pair_slot=slot, pair_arrivals=np.zeros(len(cnt), np.int32))
     return ClusterTLAS(**_put(tables, device), tcap=tcap,
                        dummy_enc=2 * nw, num_clusters=total_c,
                        stack_need=stack_need, n_inst=ni,
-                       num_pairs=len(pgid), pair_bvh=pair_bvh)
+                       num_pairs=len(pgid), pair_bvh=pair_bvh,
+                       inst_mat=inst_mat, inst_rows=inst_rows)
 
 
 def set_transforms(ct: ClusterTLAS, transforms: list) -> ClusterTLAS:
     """Move the instances to ``transforms`` (one per instance, (3,4) /
-    (4,4) / (3,3)), on the device of the tables: the inverse and normal
-    matrices are recomputed on the host (float64 inverse, as at build),
-    each pair's object box goes through its instance's new forward rows
-    (8 corners), the pair BVH is refit and the node boxes regathered, so
-    ``pair_bounds`` follows too.  The object-space cluster tables stay as
-    they are.  Returns a new ``ClusterTLAS``; the old one's tensors are
+    (4,4) / (3,3)), on the device of the tables.  On the host, the
+    inverse and normal matrices of each instance whose transform changed
+    are recomputed (float64 inverse, as at build; the counter
+    ``refit.inverse_rows`` counts them) and every instance's rows go to the
+    device in one copy.  There each pair's object box goes through its
+    instance's new forward rows (8 corners), the pair BVH is refit and the
+    node boxes regathered, so ``pair_bounds`` follows too: one launch of
+    the refit kernel on CUDA tables (``refit_pairs_cuda``), the plain
+    PyTorch version on CPU tables.  The object-space cluster tables stay
+    as they are.  Returns a new ``ClusterTLAS``; the old one's tables are
     not written."""
     if ct.pair_bvh is None:
         raise ValueError("set_transforms: these tables were converted from "
@@ -289,25 +380,132 @@ def set_transforms(ct: ClusterTLAS, transforms: list) -> ClusterTLAS:
         raise ValueError(f"set_transforms: {len(transforms)} transforms "
                          f"for {ct.n_inst} instances")
     dev = ct.node_box.device
+    if dev.type == "cuda":
+        refit = refit_pairs_cuda
+    elif dev.type == "cpu":
+        refit = _refit_pairs_plain
+    else:
+        raise ValueError(f"set_transforms: no refit for device {dev}")
     with span("refit.set_transforms"):
         with span("refit.inverse"):
-            iinv, ifwd = _inst_tables(transforms)
-            fwd_rows = _fwd_rows(transforms)
-        with span("refit.rows"):
-            fwd = torch.as_tensor(fwd_rows, device=dev)[
-                ct.pair_inst.long()]
-        wmin, wmax = _pair_world_aabbs(ct.pair_obj_min, ct.pair_obj_max,
-                                       fwd)
-        with span("refit.slots"):
-            perm = ct.pair_bvh.tri_order.long()  # refit takes per-slot boxes
-            wmin, wmax = wmin[perm], wmax[perm]
-        bvh = refit_bvh(ct.pair_bvh, wmin, wmax)
-        with span("refit.nodes"):
-            return dataclasses.replace(
-                ct, node_box=_child_boxes(ct.child_node, bvh), pair_bvh=bvh,
-                iinv=torch.as_tensor(np.ascontiguousarray(iinv[:, :12]),
-                                     device=dev),
-                ifwd=torch.as_tensor(ifwd, device=dev))
+            mat, rows = _update_rows(ct, transforms)
+        bvh, node_box, iinv, ifwd = refit(
+            ct, torch.as_tensor(rows, device=dev))
+        return dataclasses.replace(
+            ct, node_box=node_box, pair_bvh=bvh, iinv=iinv, ifwd=ifwd,
+            inst_mat=mat, inst_rows=rows)
+
+
+def _refit_pairs_plain(ct: ClusterTLAS, rows: torch.Tensor) -> tuple:
+    """The plain PyTorch version of the refit kernel, on the device of
+    the tables: from the (Ni, ROW) instance rows, (pair BVH, node_box,
+    iinv, ifwd) of the moved instances (each pair's box through its
+    instance's forward rows, ``refit_bvh``, the child-slot regather)."""
+    with span("refit.rows"):
+        fwd = rows[:, :12][ct.pair_inst.long()]
+    wmin, wmax = _pair_world_aabbs(ct.pair_obj_min, ct.pair_obj_max, fwd)
+    with span("refit.slots"):
+        perm = ct.pair_bvh.tri_order.long()  # refit takes per-slot boxes
+        wmin, wmax = wmin[perm], wmax[perm]
+    bvh = refit_bvh(ct.pair_bvh, wmin, wmax)
+    with span("refit.nodes"):
+        return (bvh, _child_boxes(ct.child_node, bvh),
+                rows[:, 12:24].contiguous(), rows[:, 24:].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the refit kernel (csrc/tlas_refit.cu): build, bind, launch
+# ---------------------------------------------------------------------------
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                     "tlas_refit.cu")
+_LIB_LOCK = threading.Lock()
+_LIB = None
+
+
+def cuda_library():
+    """Build (first use) and load the refit kernel's library; cached."""
+    global _LIB
+    from ..native import build_shared_library
+    from .cluster_v2 import NVCC_FLAGS, _nvcc    # it imports this module
+
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build_shared_library(
+                [_nvcc()] + NVCC_FLAGS, [_CSRC], "libmrt_tlas_refit.so"))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.mrt_tlas_refit.restype = ctypes.c_int
+            lib.mrt_tlas_refit.argtypes = (
+                [p, i, p, p, p, p]              # rows, Ni, pairs
+                + [p, p, p, p, i]               # tree, M
+                + [p, i, p]                     # child slots, W*8, arrivals
+                + [p, p, p, p, p, p])           # outputs, stream
+            _LIB = lib
+        return _LIB
+
+
+def _refit_kernel_args(ct: ClusterTLAS, rows: torch.Tensor) -> tuple:
+    """Check the refit kernel's inputs and allocate its outputs: (the C
+    entry's arguments up to the stream, (aabb_min, aabb_max, node_box,
+    iinv, ifwd))."""
+    from .cluster_v2 import _check               # it imports this module
+
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"refit_pairs_cuda needs CUDA tensors, got {dev}")
+    bvh = ct.pair_bvh
+    ni, p, m = ct.n_inst, bvh.num_tris, bvh.num_nodes
+    nw = ct.child_node.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dt, shape in (
+            ("rows", rows, f32, (ni, ROW)),
+            ("pair_obj_min", ct.pair_obj_min, f32, (p, 3)),
+            ("pair_obj_max", ct.pair_obj_max, f32, (p, 3)),
+            ("pair_inst", ct.pair_inst, i32, (p,)),
+            ("tri_order", bvh.tri_order, i32, (p,)),
+            ("left_first", bvh.left_first, i32, (m,)),
+            ("count", bvh.count, i32, (m,)),
+            ("pair_parent", ct.pair_parent, i32, (m,)),
+            ("pair_slot", ct.pair_slot, i32, (m,)),
+            ("child_node", ct.child_node, i32, (nw, 8)),
+            ("pair_arrivals", ct.pair_arrivals, i32, (m,))):
+        _check(t, name, dt, shape, dev)
+    outs = (torch.empty((m, 3), dtype=f32, device=dev),
+            torch.empty((m, 3), dtype=f32, device=dev),
+            torch.empty((nw, 8, 6), dtype=f32, device=dev),
+            torch.empty((ni, 12), dtype=f32, device=dev),
+            torch.empty((ni, 9), dtype=f32, device=dev))
+    args = [rows.data_ptr(), ni, ct.pair_obj_min.data_ptr(),
+            ct.pair_obj_max.data_ptr(), ct.pair_inst.data_ptr(),
+            bvh.tri_order.data_ptr(), bvh.left_first.data_ptr(),
+            bvh.count.data_ptr(), ct.pair_parent.data_ptr(),
+            ct.pair_slot.data_ptr(), m, ct.child_node.data_ptr(), nw * 8,
+            ct.pair_arrivals.data_ptr(), *(t.data_ptr() for t in outs)]
+    return args, outs
+
+
+def refit_pairs_cuda(ct: ClusterTLAS, rows: torch.Tensor) -> tuple:
+    """``_refit_pairs_plain`` as one launch of the refit kernel, on CUDA
+    tables: the same (pair BVH, node_box, iinv, ifwd), bit for bit, in
+    new tensors.  Launches on the current stream without synchronizing;
+    raises if the launch is refused.  The arrival counters it uses come
+    back to 0 at the launch's end."""
+    args, (amin, amax, node_box, iinv, ifwd) = _refit_kernel_args(ct, rows)
+    dev = rows.device
+    lib = cuda_library()
+    # the runtime launches on its current device: make it the tables' one
+    with torch.cuda.device(dev), span("refit.kernel"):
+        err = lib.mrt_tlas_refit(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tlas_refit kernel launch failed: CUDA error "
+                           f"{err}")
+    refit_pairs_cuda.launches += 1
+    return (dataclasses.replace(ct.pair_bvh, aabb_min=amin, aabb_max=amax,
+                                host=None), node_box, iinv, ifwd)
+
+
+refit_pairs_cuda.launches = 0
 
 
 def cluster_tlas_from_jax(nodes, ablocks, islab, iprim, iinv, ifwd, *,

@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from messyerraytracer_tpu.accel import bvh as jbvh  # noqa: E402
 from messyerraytracer_tpu.accel.tlas import SceneTLAS as JaxTLAS  # noqa
@@ -65,6 +66,7 @@ from messyerraytracer_tpu_torch.scene.scene import (  # noqa: E402
     build_scene_from_tri_array,
 )
 from messyerraytracer_tpu_torch.utils import meshes  # noqa: E402
+from messyerraytracer_tpu_torch.utils import trace  # noqa: E402
 from torch_port_helpers import (  # noqa: E402
     ANCHOR_ATOL,
     assert_parity,
@@ -501,6 +503,107 @@ def test_set_transforms_tables(instanced):
     assert torch.equal(view.bounds[0], lo) and view.cluster_tlas is ct
 
 
+# instance -> pose steps, and how many rows each step's inverse redoes
+ROW_STEPS = {
+    "same_instance_twice": [({1: MOVES[1]}, 1), ({1: MOVES[4]}, 1)],
+    "back_to_an_earlier_pose": [({4: MOVES[4]}, 1), ({4: "rest"}, 1)],
+    "no_op": [({2: "rest"}, 0)],
+    "three_at_once": [(MOVES, 3), ({8: MOVES[8]}, 0)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROW_STEPS))
+def test_incremental_rows_equal_full_recompute(instanced, case):
+    """``set_transforms`` redoes the float64 inverse only for the rows
+    whose transform changed (``refit.inverse_rows`` counts them), and after
+    each step its row table, its inverse tables and the transforms it
+    keeps equal a full ``_inst_tables`` / ``_fwd_rows`` recompute bit for
+    bit; a step that changes no transform leaves the node boxes as they
+    were."""
+    _, _, before = instanced
+    _, inst = inst_spec()
+    rest = [tf for _, tf in inst]
+    ts, ct = list(rest), before
+    for poses, redone in ROW_STEPS[case]:
+        for k, tf in poses.items():
+            ts[k] = rest[k] if isinstance(tf, str) else tf
+        trace.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            new = pctlas.set_transforms(ct, list(ts))
+        assert trace.counters()["refit.inverse_rows"] == redone
+        iinv, ifwd = pctlas._inst_tables(ts)
+        assert_bits(new.inst_rows, np.concatenate(
+            [pctlas._fwd_rows(ts), iinv[:, :12], ifwd], axis=1))
+        assert_bits(new.inst_mat.view(np.int64),
+                    np.stack([pctlas._to_mat34(t).reshape(-1)
+                              for t in ts]).view(np.int64))
+        assert_bits(new.iinv, iinv[:, :12])
+        assert_bits(new.ifwd, ifwd)
+        if redone == 0:
+            assert_bits(new.node_box, ct.node_box)
+        ct = new
+    trace.reset()
+
+
+def _root_parent(ct):
+    parent = ct.pair_parent.numpy()
+    assert parent[0] == -1
+    assert (parent[1:] >= 0).all()
+
+
+def _children_point_back(ct):
+    parent = ct.pair_parent.numpy()
+    lf, cnt = ct.pair_bvh.left_first.numpy(), ct.pair_bvh.count.numpy()
+    inner = np.flatnonzero(cnt == 0)
+    assert inner.size > 0
+    np.testing.assert_array_equal(parent[inner + 1], inner)
+    np.testing.assert_array_equal(parent[lf[inner]], inner)
+    assert np.bincount(parent[1:], minlength=len(cnt))[inner].tolist() \
+        == [2] * inner.size
+
+
+def _slots_once(ct):
+    kids, slot = ct.child_node.numpy().reshape(-1), ct.pair_slot.numpy()
+    present = np.flatnonzero(kids >= 0)
+    np.testing.assert_array_equal(slot[kids[present]], present)
+    assert (slot >= 0).sum() == present.size
+    held = np.flatnonzero(slot >= 0)
+    np.testing.assert_array_equal(kids[slot[held]], held)
+    assert slot[0] == -1
+
+
+REFIT_TABLES = {"root_parent": _root_parent,
+                "children_point_back": _children_point_back,
+                "slots_once": _slots_once}
+
+
+@pytest.mark.parametrize("case", sorted(REFIT_TABLES))
+def test_pair_refit_tables(instanced, case):
+    """The build's tables of the refit kernel: the root's parent is -1 and
+    every other node has one; each internal node's two children point
+    back to it; each present ``child_node`` slot maps to its node and back
+    exactly once, absent slots and the root to none; the arrival counters
+    start at 0."""
+    _, _, before = instanced
+    REFIT_TABLES[case](before)
+    assert not before.pair_arrivals.any()
+
+
+def test_refit_kernel_wrapper_refuses_cpu(instanced):
+    """CPU tables take the plain version (no launch is counted); the
+    kernel's wrapper refuses CPU tensors, and ``set_transforms`` refuses a
+    transform list of the wrong length."""
+    p, _, before = instanced
+    launches = pctlas.refit_pairs_cuda.launches
+    pctlas.set_transforms(before, [i.transform for i in p.instances])
+    assert pctlas.refit_pairs_cuda.launches == launches
+    rows = torch.as_tensor(before.inst_rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        pctlas.refit_pairs_cuda(before, rows)
+    with pytest.raises(ValueError, match="instances"):
+        pctlas.set_transforms(before, [np.eye(4)])
+
+
 @pytest.mark.parametrize("query_mask", [-1, 0b10])
 def test_set_transform_casts(instanced, query_mask):
     """After ``set_transform`` the instanced cast (B1's plain version)
@@ -608,10 +711,30 @@ def test_service_set_transform_and_refit_equal_jax():
         port.cast_ray((0, 0, 4), (0, 0, -1))
 
 
+# three consecutive moves for the refit kernel: a lift, a half-box turned
+# about y with a -0.0 translation, so that its world box's max x is a tie of
+# -0.0 and +0.0 corners (the min / max semantics), and the lift undone
+HALF_BOX = meshes.box((1.0, 2.0, 1.0), center=(0.5, 0.0, 0.0))   # x in [0, 1]
+TURN = np.array([[-1, 0, 0, -0.0], [0, 1, 0, 2.0], [0, 0, -1, 0.0]],
+                np.float32)
+KERNEL_STEPS = ({2: xform((-4.0, 1.0, 0.0), 1.0, 0.3)}, {9: TURN},
+                {2: "rest"})
+
+
+def _tables(ct):
+    return {"aabb_min": ct.pair_bvh.aabb_min, "aabb_max": ct.pair_bvh.aabb_max,
+            "node_box": ct.node_box, "iinv": ct.iinv, "ifwd": ct.ifwd}
+
+
 @pytest.mark.gpu
 def test_refits_on_card_equal_cpu():
     """The refits on the card give the CPU's tables bit for bit: flat
-    (cluster and 8-wide), instanced and the flat twin."""
+    (cluster and 8-wide), instanced and the flat twin.  Then three
+    consecutive ``set_transforms`` on the card, one with a signed-zero
+    tie: each launches the refit kernel once and opens no level sweep, its
+    tables equal the plain version's on the card bit for bit (NaN slots
+    included; the arrival counters came back to 0), and the tables it
+    started from are unchanged."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     tris, mv = small_tris(), moved(small_tris(), 1)
@@ -642,3 +765,32 @@ def test_refits_on_card_equal_cpu():
     for k in CLUSTER_TABLES:
         assert_bits(getattr(ts[1].flat.cluster, k),
                     getattr(ts[0].flat.cluster, k), k)
+
+    ms, inst = inst_spec()
+    ms, inst = ms + [HALF_BOX], inst + [(3, xform((5.0, 0.0, 3.0)))]
+    rest = [tf for _, tf in inst]
+    ct = pctlas.build_cluster_tlas(ms, inst, device="cuda")
+    tfs = list(rest)
+    for step in KERNEL_STEPS:
+        for k, tf in step.items():
+            tfs[k] = rest[k] if isinstance(tf, str) else tf
+        old = {k: v.clone() for k, v in _tables(ct).items()}
+        launches = pctlas.refit_pairs_cuda.launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            new = pctlas.set_transforms(ct, list(tfs))
+        names = [e.name for e in prof.events()]
+        assert names.count("refit.kernel") == 1
+        assert not {"bvh.level", "refit.corner"} & set(names)
+        assert pctlas.refit_pairs_cuda.launches == launches + 1
+        bvh, node_box, iinv, ifwd = pctlas._refit_pairs_plain(
+            ct, torch.as_tensor(new.inst_rows, device="cuda"))
+        plain = {"aabb_min": bvh.aabb_min, "aabb_max": bvh.aabb_max,
+                 "node_box": node_box, "iinv": iinv, "ifwd": ifwd}
+        for k, v in _tables(new).items():
+            assert_bits(v, plain[k], k)
+        for k, v in _tables(ct).items():
+            assert_bits(v, old[k], k)
+        assert not new.pair_arrivals.any()
+        if step is KERNEL_STEPS[1]:
+            assert bool((plain["aabb_max"][:, 0] == 0).any())
+        ct = new
