@@ -79,7 +79,12 @@ def _wait(device: torch.device) -> None:
 
 
 class RayTracerService:
-    """The central scene-owning service.
+    """The central scene-owning service.  The scene's tables follow the
+    backend it is constructed with: ``backend="pallas"`` builds the flat
+    twin with kernel B4's 8-wide tables (``build`` and ``refit`` alike)
+    and casts on them; every other backend builds kernel B1's cluster
+    tables, over which ``set_backend`` walks the chain cluster -> pallas
+    -> jnp.
 
     ``register_mesh`` (or ``tlas.add_mesh`` + ``add_instance``),
     ``build()``, then ``cast_ray`` / ``submit``.  Scene tensors live on
@@ -93,7 +98,9 @@ class RayTracerService:
         self._check_backend(backend)
         self._backend = backend
         self.device = torch.device(device)
-        self._tlas = SceneTLAS(backend="cluster", device=self.device)
+        # the tables the scene is built with: B4's for "pallas", else B1's
+        self._tables = "pallas" if backend == "pallas" else "cluster"
+        self._tlas = SceneTLAS(backend=self._tables, device=self.device)
         self._dispatcher: RayDispatcher | None = None
         self._last_stats: RayStats | None = None
         self._last_elapsed_ms = 0.0
@@ -123,8 +130,8 @@ class RayTracerService:
         return self._tlas.add_instance(blas_id, transform, layers)
 
     def build(self) -> None:
-        """(Re)build the scene: the flattened world-space twin, cast
-        through the dispatcher."""
+        """(Re)build the scene: the flattened world-space twin, with the
+        tables of the constructed backend, cast through the dispatcher."""
         self._tlas.build_tlas()
         self._dispatcher = RayDispatcher(self._tlas.flat,
                                          backend=self._resolve_backend())
@@ -142,7 +149,7 @@ class RayTracerService:
                                          backend=self._resolve_backend())
 
     def clear_scene(self) -> None:
-        self._tlas = SceneTLAS(backend="cluster", device=self.device)
+        self._tlas = SceneTLAS(backend=self._tables, device=self.device)
         self._dispatcher = None
 
     @property
@@ -159,7 +166,8 @@ class RayTracerService:
         follows from which tables the scene has (a ``cluster`` request
         on a scene without cluster tables uses the wide tables, and
         without those the binary BVH); every link runs on the scene's
-        device."""
+        device.  The tables stay those of the construction (see the
+        class): switching never rebuilds them."""
         self._check_backend(backend)
         self._backend = backend
         if self._dispatcher is not None:

@@ -53,7 +53,7 @@ import threading
 import torch
 
 from ..core.types import NO_HIT, Hits, Rays, RayStats, safe_inv_direction
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .cluster import _kstack_for
 from .cluster_v2 import (
     _F32,
@@ -354,7 +354,10 @@ wide_cast_cuda.launches = 0
 def wide_cast(rays: Rays, ws: WideScene, query_mask: int = -1,
               any_hit: bool = False, quantized: bool = False,
               kstack: int | None = None):
-    """Kernel B4 on CUDA tensors, its plain version on CPU tensors."""
+    """Kernel B4 on CUDA tensors, its plain version on CPU tensors.  Adds
+    the batch's ray count to the counter ``b4.rays.any_hit`` or
+    ``b4.rays.nearest`` (while a profiler records)."""
+    count("b4.rays.any_hit" if any_hit else "b4.rays.nearest", rays.count)
     args = (rays.origin, rays.direction, rays.t_min, rays.t_max, ws)
     kind = rays.origin.device.type
     if kind == "cuda":
@@ -404,7 +407,7 @@ def cast_rays_wide(rays: Rays, scene: WideScene, query_mask: int = -1,
     False / "leaf", and the streaming flags stream_leaves / stream_nodes):
     accepted and ignored — the same kernel serves every one of them.
     Kernel B4 and the hit assembly run inside the profiler range
-    ``cast``."""
+    ``cast``, the hit assembly inside ``b4.hits``."""
     del interpret, n_slots, stream_leaves, stream_nodes, srows, cond_drain
     if columnar not in COLUMNAR:
         raise ValueError(f"columnar must be one of {COLUMNAR}")
@@ -414,7 +417,8 @@ def cast_rays_wide(rays: Rays, scene: WideScene, query_mask: int = -1,
     with span("cast"):
         fout, iout, counters = wide_cast(rays, scene, query_mask, any_hit,
                                          quantized)
-        hits, found = _hits_from_slots(fout, iout, rays, scene)
+        with span("b4.hits"):
+            hits, found = _hits_from_slots(fout, iout, rays, scene)
     dev = rays.origin.device
     stats = RayStats(
         rays_cast=torch.tensor(rays.count, dtype=torch.int64, device=dev),

@@ -39,6 +39,7 @@ import torch
 
 from ..accel.bvh import _bvh_host
 from ..core.types import DEFAULT_DEVICE
+from ..utils.trace import span
 
 NODE_STRIDE = 16      # JAX lanes per binary node (8 per 128-lane row)
 NODE8_STRIDE = 64     # JAX lanes per 8-wide node (2 per row)
@@ -364,22 +365,25 @@ def build_wide8_scene(bvh, tris, _np=None, stream_leaves: bool = False,
                       collapsed=None) -> WideScene:
     """The 8-wide layout: ``_collapse8`` over the binary BVH (or the given
     ``collapsed`` grouping, see ``_upper_node_tables``), leaves as in
-    ``build_wide_scene`` (the JAX ``build_wide8_scene`` contract)."""
-    host, (v0, e1, e2, nrm, pid, lay) = _host_inputs(bvh, tris, _np)
-    lf, cnt = host["left_first"], host["count"]
-    is_leaf = cnt > 0
-    leaf_of = (np.cumsum(is_leaf) - 1).astype(np.int32)
-    node_box, node_child, node_axis, nw, _, kids = _upper_node_tables(
-        host["aabb_min"], host["aabb_max"], lf, cnt, is_leaf, leaf_of,
-        collapsed)
-    tables = {"node_box": node_box, "node_child": node_child,
-              "node_axis": node_axis, "child_node": kids,
-              **_leaf_tables(lf, cnt, v0, e1, e2, nrm, pid, lay)}
-    if device is None:
-        device = tris.v0.device if tris is not None else DEFAULT_DEVICE
-    return _finish(tables, device, branching=8, dummy_enc=2 * nw,
-                   dummy_leaf=int(is_leaf.sum()),
-                   stream_leaves=stream_leaves, stream_nodes=stream_nodes)
+    ``build_wide_scene`` (the JAX ``build_wide8_scene`` contract).  Runs
+    inside the span ``wide.build``."""
+    with span("wide.build"):
+        host, (v0, e1, e2, nrm, pid, lay) = _host_inputs(bvh, tris, _np)
+        lf, cnt = host["left_first"], host["count"]
+        is_leaf = cnt > 0
+        leaf_of = (np.cumsum(is_leaf) - 1).astype(np.int32)
+        node_box, node_child, node_axis, nw, _, kids = _upper_node_tables(
+            host["aabb_min"], host["aabb_max"], lf, cnt, is_leaf, leaf_of,
+            collapsed)
+        tables = {"node_box": node_box, "node_child": node_child,
+                  "node_axis": node_axis, "child_node": kids,
+                  **_leaf_tables(lf, cnt, v0, e1, e2, nrm, pid, lay)}
+        if device is None:
+            device = tris.v0.device if tris is not None else DEFAULT_DEVICE
+        return _finish(tables, device, branching=8, dummy_enc=2 * nw,
+                       dummy_leaf=int(is_leaf.sum()),
+                       stream_leaves=stream_leaves,
+                       stream_nodes=stream_nodes)
 
 
 def refresh_wide_scene(wide: WideScene, bvh, tris) -> WideScene:
