@@ -67,12 +67,14 @@ def patched(src: str, line: str, new: str, path: str) -> str:
 def build_variants(old_src: str, rs: list[float], out_dir: str):
     """{name: (library, is_old)}, one nvcc each, started together."""
     from messyerraytracer_tpu_torch.kernels import cluster_v2
-    from messyerraytracer_tpu_torch.native import build_shared_library
+    from messyerraytracer_tpu_torch.native import (NVCC_FLAGS,
+                                                   build_shared_library,
+                                                   nvcc)
 
     os.makedirs(out_dir, exist_ok=True)
     with open(old_src) as f:
         old = f.read()
-    with open(cluster_v2._CSRC) as f:
+    with open(cluster_v2.cuda_library.source) as f:
         new = f.read()
     out = lambda name: os.path.join(out_dir, name)        # noqa: E731
     jobs = [("old", old_src, True),
@@ -91,7 +93,7 @@ def build_variants(old_src: str, rs: list[float], out_dir: str):
                 cluster_v2.cuda_library()
             else:
                 paths[name] = build_shared_library(
-                    [cluster_v2._nvcc()] + cluster_v2.NVCC_FLAGS, [source],
+                    [nvcc()] + NVCC_FLAGS, [source],
                     os.path.join("variants",
                                  os.path.basename(source)[:-3] + ".so"))
         except Exception as e:     # re-raised below, in the main thread
@@ -111,7 +113,7 @@ def build_variants(old_src: str, rs: list[float], out_dir: str):
     libs = {}
     for name, _, is_old in [jobs[-1]] + jobs[:-1]:
         lib = (cluster_v2.cuda_library() if name == "shipped"
-               else cluster_v2._load_library(paths[name]))
+               else cluster_v2.cuda_library.load(paths[name]))
         if is_old:                 # the earlier C entry has no warp_stats
             at = list(lib.mrt_cluster_cast.argtypes)
             del at[-2]

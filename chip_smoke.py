@@ -3,16 +3,21 @@ the port still builds and runs its main paths on the GPU.
 
     python3 chip_smoke.py
 
-Builds both kernels from the checkout, each with its own nvcc started at
+Builds the kernels from the checkout, each with its own nvcc started at
 the same time (B1: kernels/csrc/cluster_cast.cu, B4: kernels/csrc/
-wide_cast.cu; nvcc -> ctypes), then:
+wide_cast.cu, the refit kernel: kernels/csrc/tlas_refit.cu, the camera
+kernel: kernels/csrc/camera_rays.cu; nvcc -> ctypes), then:
 
   1. holds kernel B1 against its plain PyTorch version on the card, bit
      for bit with every counter, on test-sized flat and instanced scenes
      (closest hit, any hit, a layer mask, dead and zero-direction rays, a
      forced small stack, coherent grid rays, sparse warps, a scene of
      duplicated triangles), and reads B1's warp stats to show which mode
-     of its cluster phase each case took;
+     of its cluster phase each case took; then (1b) holds the camera
+     kernel against its plain version, on the card and on the CPU, bit
+     for bit on both primary cells' frames (1920x1080 and 1024x768), and
+     times it over CAMERA_ITERS launches beside its bound and the plain
+     version's time;
   2. drives the cluster main path at full size — the 1M-triangle instanced
      TLAS of the JAX package's bench.py headline (4 meshes, 215
      instances), one block-swizzled 1920x1080 frame through
@@ -117,8 +122,12 @@ wide_cast.cu; nvcc -> ctypes), then:
      path-traced frame's wave rays equal with B1 and with its plain
      version.
 
-Every number is printed beside the card's name and power limit.  The last
-two lines are the kernel summary and the result, both JSON.  Exits
+The camera kernel's launches are counted, as B1's are, from the main
+paths' own runs (the frames of phases 2, 5, 7, 8 and 9; phase 1b's
+checks and timing are left out), and their sum goes to the kernel
+summary.  Every number is printed beside the card's name and power
+limit.  The last two lines are the kernel summary and the result, both
+JSON.  Exits
 non-zero, printing no result, when there is no CUDA card or any check
 fails.
 """
@@ -196,8 +205,9 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def build_kernels(card: str) -> None:
-    """Build the three kernel libraries, one nvcc each, started together."""
-    from messyerraytracer_tpu_torch.kernels import (cluster_tlas, cluster_v2,
+    """Build the four kernel libraries, one nvcc each, started together."""
+    from messyerraytracer_tpu_torch.kernels import (camera_rays, cluster_tlas,
+                                                    cluster_v2,
                                                     traverse_pallas)
 
     t0 = time.time()
@@ -210,15 +220,16 @@ def build_kernels(card: str) -> None:
             errors.append(e)
 
     threads = [threading.Thread(target=build, args=(m,))
-               for m in (cluster_v2, traverse_pallas, cluster_tlas)]
+               for m in (cluster_v2, traverse_pallas, cluster_tlas,
+                         camera_rays)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    print(f"[{card}] kernel build {time.time() - t0} s (3 nvcc in "
-          f"parallel)", flush=True)
+    print(f"[{card}] kernel build {time.time() - t0} s ({len(threads)} "
+          f"nvcc in parallel)", flush=True)
 
 
 def random_rays(n: int, seed: int, extent: float, device,
@@ -446,6 +457,70 @@ def phase_kernel_vs_plain(card: str, device) -> None:
           f"{prim.numel()} hits, all on the lower copy", flush=True)
 
 
+CAMERA_ITERS = 2000       # launches of the camera kernel timed together
+CAMERA_BYTES_PER_RAY = 32  # origin 12, direction 12, t_min 4, t_max 4
+
+
+def phase_camera(card: str, device) -> dict:
+    """Phase 1b: the camera kernel against its plain version on the primary
+    cells' frames, bit for bit, with the cells' jitter (0.5) and a Halton
+    one: the kernel's rays (one launch a call) equal the plain version's
+    on the card and on the CPU.  Then timed, each fenced by CUDA events:
+    the kernel alone (its C entry on outputs allocated once) and
+    ``generate_rays`` (wrapper and allocation) over CAMERA_ITERS launches,
+    the plain version on the card over 20 calls.  The bound is the bytes
+    the frame's rays take, written once.  Returns {frame: (kernel ms,
+    call ms, plain ms, bound ms)}."""
+    import torch
+
+    import messyerraytracer_tpu_torch as mrt
+    from messyerraytracer_tpu_torch.bench import camera_99k
+    from messyerraytracer_tpu_torch.kernels import camera_rays as kcam
+    from messyerraytracer_tpu_torch.render import camera as rcam
+    from messyerraytracer_tpu_torch.render.renderer import halton
+
+    cpu, out = torch.device("cpu"), {}
+    fields = ("origin", "direction", "t_min", "t_max")
+    for name, cam, w, h in (("1920x1080", headline_camera(), 1920, 1080),
+                            ("1024x768", camera_99k(), 1024, 768)):
+        for jit in ((0.5, 0.5), (halton(1, 2), halton(1, 3))):
+            before = kcam.camera_rays_cuda.launches
+            a = mrt.generate_rays(cam, w, h, jitter=jit, device=device)
+            check(kcam.camera_rays_cuda.launches == before + 1,
+                  f"camera {name}: one launch a call")
+            for dev in (device, cpu):
+                b = rcam._generate_rays(cam, w, h, jit, dev)
+                check(all(torch.equal(getattr(a, f).cpu(),
+                                      getattr(b, f).cpu()) for f in fields),
+                      f"camera kernel {name} jitter {jit} == plain on "
+                      f"{dev.type} bit for bit")
+        n = w * h
+        outs = tuple(torch.empty(s, dtype=torch.float32, device=device)
+                     for s in ((n, 3), (n, 3), (n,), (n,)))
+        args = kcam.kernel_args(w, h, False, cam.origin, cam.basis,
+                                (0.5, 0.5), rcam._plane_scales(cam, w, h),
+                                outs)
+        lib = kcam.cuda_library()
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_ms = cuda_ms(lambda: lib.mrt_camera_rays(*args, stream),
+                            CAMERA_ITERS)
+        call_ms = cuda_ms(lambda: mrt.generate_rays(cam, w, h,
+                                                    device=device),
+                          CAMERA_ITERS)
+        plain_ms = cuda_ms(lambda: rcam._generate_rays(
+            cam, w, h, (0.5, 0.5), device), 20)
+        written = CAMERA_BYTES_PER_RAY * n
+        bound_ms, what = bound(written, 0)
+        out[name] = (kernel_ms, call_ms, plain_ms, bound_ms)
+        print(f"[{card}] phase 1b camera {name}: kernel == plain (card and "
+              f"CPU) bit for bit; alone {kernel_ms} ms a launch, "
+              f"generate_rays {call_ms} ms a call (CUDA events over "
+              f"{CAMERA_ITERS}); bound {bound_ms} ms ({written} bytes, "
+              f"{what}), alone at {100.0 * bound_ms / kernel_ms}% of it; "
+              f"plain version {plain_ms} ms", flush=True)
+    return out
+
+
 def cluster_bound(cs, rays, fout, iout, counters):
     """B1's bound on this run's inputs: rays, scene tables and outputs
     moved once; slab tests of 8 children per pop and one Plucker test per
@@ -497,7 +572,10 @@ def phase_main_path(card: str, device):
     t0 = time.time()
     flat = build_scene_from_tri_array(world_tris, device=device)
     times["build_1m_flat_s"] = time.time() - t0
+    reset_camera()
     rays = block_swizzled_frame_rays(*FRAME, headline_camera(), device)
+    check(read_camera("main path") == 1, "main path's frame: one launch of "
+          "the camera kernel")
     n = rays.count
     print(f"[{card}] scene: {len(tlas.instances)} instances, "
           f"{world_tris.shape[0]} world triangles, {n} rays; build s "
@@ -1055,6 +1133,7 @@ def phase_renderer(card: str, device, ctx: dict) -> int:
 
     # ---- the renderer's own run: counts reset just before, read after
     cluster_cast_cuda.launches = 0
+    reset_camera()
     color.render_frame()
     per_color = cluster_cast_cuda.launches
     f_color = color.render_frame()
@@ -1064,6 +1143,8 @@ def phase_renderer(card: str, device, ctx: dict) -> int:
     check(per_color == 2 and launches == 5,
           f"renderer: B1 per COLOR frame {per_color} (trace + shadows), "
           f"{launches} in the run")
+    check(read_camera("renderer") == 3, "renderer: one camera launch a "
+          "frame")
     check(color._accum_frames == 2, "two frames accumulated")
     for frame, chans in ((f_color, (fb.COLOR,)), (f_debug, aovs)):
         for ch in chans:
@@ -1121,7 +1202,10 @@ def phase_path_tracers(card: str, device, ctx: dict) -> int:
         WavefrontPathTracer)
 
     lights, env, mats = shading(device)
+    reset_camera()
     rays = block_swizzled_frame_rays(*FRAME, headline_camera(), device)
+    check(read_camera("path tracers") == 1, "path tracers' frame: one "
+          "camera launch")
     inst = ctx["tlas"].instanced_scene()
     total = 0
     for name, scene, cs, bounds in (
@@ -1712,6 +1796,30 @@ def reset_launches() -> None:
 
     cluster_cast_cuda.launches = 0
     wide_cast_cuda.launches = 0
+    reset_camera()
+
+
+# the camera kernel's launches in each main path's own run, {path: count}:
+# the kernels summary reports their sum
+CAMERA_RUNS: dict = {}
+
+
+def reset_camera() -> None:
+    from messyerraytracer_tpu_torch.kernels.camera_rays import (
+        camera_rays_cuda)
+
+    camera_rays_cuda.launches = 0
+
+
+def read_camera(path: str) -> int:
+    """The camera kernel's launches since ``reset_camera`` (or
+    ``reset_launches``), added to ``CAMERA_RUNS[path]``."""
+    from messyerraytracer_tpu_torch.kernels.camera_rays import (
+        camera_rays_cuda)
+
+    n = camera_rays_cuda.launches
+    CAMERA_RUNS[path] = CAMERA_RUNS.get(path, 0) + n
+    return n
 
 
 def read_launches() -> tuple[int, int]:
@@ -2016,9 +2124,13 @@ def phase_sharding(card: str, device, ctx: dict) -> dict:
     check(tuple(img.shape) == (n, 3) and bool(torch.isfinite(img).all())
           and r1 == 16 and r4 == 0,
           f"render_step_sharded 1080p: finite, 4 B1 casts a shard ({r1})")
+    check(read_camera("render_step_sharded") == 1,
+          "render_step_sharded: one camera launch")
     reset_launches()
     dry, dry_s = sync_s(lambda: dryrun_multichip(4, device=device))
     d1, d4 = read_launches()
+    check(read_camera("dryrun_multichip") == 3, "dryrun_multichip: three "
+          "camera launches (its batch, its render step, its sub-frame)")
     b1, b4 = b1 + r1 + d1, b4 + r4 + d4
     print(f"[{card}] phase 7c render_step_sharded 1080p x 1 bounce on 4 "
           f"shards: {step_s * 1e3} ms wall, mean radiance "
@@ -2121,6 +2233,7 @@ def phase_cards(card: str, device, ctx: dict, img_ref) -> tuple[int, int]:
     reset_launches()
     img = render_step_sharded(flat, cam, *FRAME, cards, **step)
     r1, r4 = read_launches()
+    read_camera("render_step_sharded")
     check(bit_equal(img, img_ref), f"render_step_sharded on {n_dev} cards "
           f"== on {n_dev} x {device} bit for bit")
     ms["render step, cards"] = all_cards_s(
@@ -2129,6 +2242,7 @@ def phase_cards(card: str, device, ctx: dict, img_ref) -> tuple[int, int]:
     reset_launches()
     dry = dryrun_multichip(n_dev)
     d1, d4 = read_launches()
+    read_camera("dryrun_multichip")
     print(f"[{card}] phase 7e {n_dev} cards {[str(d) for d in cards]}: "
           f"ray-sharded (B1, B4), the render step and the scene-sharded "
           f"cast == / parity with the same on {n_dev} x {device}; "
@@ -2277,6 +2391,7 @@ def phase_gallery(card: str, device) -> int:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         b1, b4 = read_launches()
+        read_camera("demos")
         check(b1 > 0 and b4 == 0, f"{name}: ran B1 ({b1}), not B4 ({b4})")
         total += b1
         check(buf.getvalue() == "".join(x + "\n" for x in res.lines),
@@ -2379,13 +2494,16 @@ def phase_bench(card: str, device, ctx: dict) -> int:
 
     # ---- the bench's own run: counts reset just before, read after
     cluster_cast_cuda.launches = 0
+    reset_camera()
     t0 = time.time()
     out = bench.run(device)
     torch.cuda.synchronize()
     launches = cluster_cast_cuda.launches
+    cam_launches = read_camera("bench.run")
     e = out["extra"]
     print(f"[{card}] phase 9 bench.run {time.time() - t0} s, B1 launches "
-          f"{launches}; line: {json.dumps(out)}", flush=True)
+          f"{launches}, camera launches {cam_launches}; line: "
+          f"{json.dumps(out)}", flush=True)
     check(list(e) == list(bench.EXTRA_KEYS), "bench keys == EXTRA_KEYS")
     check((out["metric"], out["unit"]) == (bench.METRIC, bench.UNIT),
           "bench metric and unit")
@@ -2491,6 +2609,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     build_kernels(card)
     phase_kernel_vs_plain(card, device)
+    cam_ms = phase_camera(card, device)
     k1, ctx = phase_main_path(card, device)
     phase_wide_vs_plain(card, device)
     k4 = phase_pallas_path(card, device, ctx)
@@ -2521,6 +2640,8 @@ def main() -> int:
           f"launches {p9}", flush=True)
     k1["launches"] += p5["b1"] + p6["b1"] + p7["b1"] + p8 + p9
     k4["launches"] += p5["b4"] + p6["b4"] + p7["b4"]
+    print(f"[{card}] camera kernel launches by path {json.dumps(CAMERA_RUNS)}",
+          flush=True)
     print(f"[{card}] chip_smoke total {time.time() - t_start} s",
           flush=True)
     src = "messyerraytracer_tpu_torch/kernels/csrc/"
@@ -2539,7 +2660,15 @@ def main() -> int:
          "replaces": "messyerraytracer_tpu/kernels/traverse_pallas.py:555 "
                      "(+ messyerraytracer_tpu/kernels/traverse_pallas.py:87"
                      "'s streamed casts)",
-         **k4}]}), flush=True)
+         **k4},
+        {"name": "camera_rays (one thread a ray, 16-byte stores)",
+         "route": "cuda", "source": src + "camera_rays.cu",
+         "replaces": "none (messyerraytracer_tpu/render/camera.py is jnp)",
+         "launches": sum(CAMERA_RUNS.values()),
+         "ms": {k: v[0] for k, v in cam_ms.items()},
+         "plain_ms": {k: v[2] for k, v in cam_ms.items()},
+         "bound_ms": {k: v[3] for k, v in cam_ms.items()},
+         "bound_by": "bytes"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

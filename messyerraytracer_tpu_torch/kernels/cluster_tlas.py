@@ -28,14 +28,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import itertools
-import os
-import threading
 
 import numpy as np
 import torch
 
 from ..accel.bvh import BVH, build_bvh, build_bvh_over_aabbs, refit_bvh
 from ..core.types import ALL_LAYERS, DEFAULT_DEVICE
+from ..native import CudaLibrary
 from ..utils.trace import count, span
 from .cluster import (
     LOCAL_BITS,
@@ -417,31 +416,13 @@ def _refit_pairs_plain(ct: ClusterTLAS, rows: torch.Tensor) -> tuple:
 # the refit kernel (csrc/tlas_refit.cu): build, bind, launch
 # ---------------------------------------------------------------------------
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                     "tlas_refit.cu")
-_LIB_LOCK = threading.Lock()
-_LIB = None
-
-
-def cuda_library():
-    """Build (first use) and load the refit kernel's library; cached."""
-    global _LIB
-    from ..native import build_shared_library
-    from .cluster_v2 import NVCC_FLAGS, _nvcc    # it imports this module
-
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build_shared_library(
-                [_nvcc()] + NVCC_FLAGS, [_CSRC], "libmrt_tlas_refit.so"))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.mrt_tlas_refit.restype = ctypes.c_int
-            lib.mrt_tlas_refit.argtypes = (
-                [p, i, p, p, p, p]              # rows, Ni, pairs
-                + [p, p, p, p, i]               # tree, M
-                + [p, i, p]                     # child slots, W*8, arrivals
-                + [p, p, p, p, p, p])           # outputs, stream
-            _LIB = lib
-        return _LIB
+_p, _i = ctypes.c_void_p, ctypes.c_int
+cuda_library = CudaLibrary("tlas_refit.cu", "libmrt_tlas_refit.so", {
+    "mrt_tlas_refit": (
+        [_p, _i, _p, _p, _p, _p]        # rows, Ni, pairs
+        + [_p, _p, _p, _p, _i]          # tree, M
+        + [_p, _i, _p]                  # child slots, W*8, arrivals
+        + [_p, _p, _p, _p, _p, _p])})   # outputs, stream
 
 
 def _refit_kernel_args(ct: ClusterTLAS, rows: torch.Tensor) -> tuple:

@@ -43,9 +43,6 @@ the brute oracle they agree by the ``bench.py::parity`` rule.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import threading
 
 import numpy as np
 import torch
@@ -61,6 +58,7 @@ from ..core.types import (
     RayStats,
     safe_inv_direction,
 )
+from ..native import CudaLibrary
 from ..utils.trace import span
 from .cluster import LOCAL_BITS, LOCAL_MASK, ClusterScene, _kstack_for
 from .cluster_tlas import ClusterTLAS
@@ -298,48 +296,17 @@ def cluster_cast_plain(origin, direction, t_min, t_max, cs: ClusterScene,
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                     "cluster_cast.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-_LIB_LOCK = threading.Lock()
-_LIB = None
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def _load_library(path: str):
-    """Load a built kernel library and declare its C entry."""
-    lib = ctypes.CDLL(path)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mrt_cluster_cast.restype = ctypes.c_int
-    lib.mrt_cluster_cast.argtypes = (
-        [p, p, p, p, i]                 # rays, n
-        + [p, p, p, p, p, p, p, p, i]   # scene tables, tcap
-        + [p, p, p, p]                  # instance tables
-        + [i, i, i, i]                  # qmask, any_hit, kstack, kcap
-        + [f] * 6                       # f32 constants
-        + [p, p, p, p, p])              # fout, iout, counters, warp_stats,
-    #                                     stream
-    return lib
-
-
-def cuda_library():
-    """Build (first use) and load the kernel library; cached."""
-    global _LIB
-    from ..native import build_shared_library
-
-    with _LIB_LOCK:
-        if _LIB is None:
-            _LIB = _load_library(build_shared_library(
-                [_nvcc()] + NVCC_FLAGS, [_CSRC], "libmrt_cluster_cast.so"))
-        return _LIB
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+cuda_library = CudaLibrary("cluster_cast.cu", "libmrt_cluster_cast.so", {
+    "mrt_cluster_cast": (
+        [_p, _p, _p, _p, _i]                    # rays, n
+        + [_p, _p, _p, _p, _p, _p, _p, _p, _i]  # scene tables, tcap
+        + [_p, _p, _p, _p]                      # instance tables
+        + [_i, _i, _i, _i]                      # qmask, any_hit, kstack,
+        #                                         kcap
+        + [_f] * 6                              # f32 constants
+        + [_p, _p, _p, _p, _p])})               # fout, iout, counters,
+#                                                 warp_stats, stream
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):

@@ -47,22 +47,19 @@ brute oracle they agree by the ``bench.py::parity`` rule.
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
 from ..core.types import NO_HIT, Hits, Rays, RayStats, safe_inv_direction
+from ..native import CudaLibrary
 from ..utils.trace import count, span
 from .cluster import _kstack_for
 from .cluster_v2 import (
     _F32,
     KCAPS,
-    NVCC_FLAGS,
     PLAIN_CHUNK,
     _as_int32,
     _check,
-    _nvcc,
 )
 from .wide import LEAF_CAP, WIDE8_CAP, WideScene
 
@@ -238,37 +235,19 @@ def wide_cast_plain(origin, direction, t_min, t_max, ws: WideScene,
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                     "wide_cast.cu")
 _RAY_FIELDS = ("origin", "direction", "t_min", "t_max")   # scalar loads
-_LIB_LOCK = threading.Lock()
-_LIB = None
-
-
-def cuda_library():
-    """Build (first use) and load the kernel library; cached."""
-    global _LIB
-    from ..native import build_shared_library
-
-    with _LIB_LOCK:
-        if _LIB is None:
-            path = build_shared_library([_nvcc()] + NVCC_FLAGS, [_CSRC],
-                                        "libmrt_wide_cast.so")
-            lib = ctypes.CDLL(path)
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.mrt_wide_cast.restype = ctypes.c_int
-            lib.mrt_wide_cast.argtypes = (
-                [p, p, p, p, i]                 # rays, n
-                + [p, p, p]                     # exact nodes
-                + [p, p, p, p]                  # quantized nodes
-                + [p, p, p]                     # leaves, slot layers
-                + [i, i, i, i, i, i]            # K, q, qmask, any, kstack,
-                #                                 kcap
-                + [f] * 4                       # f32 constants
-                + [p, p, p, p, p])              # fout, iout, counters,
-            #                                     warp_stats, stream
-            _LIB = lib
-        return _LIB
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+cuda_library = CudaLibrary("wide_cast.cu", "libmrt_wide_cast.so", {
+    "mrt_wide_cast": (
+        [_p, _p, _p, _p, _i]                    # rays, n
+        + [_p, _p, _p]                          # exact nodes
+        + [_p, _p, _p, _p]                      # quantized nodes
+        + [_p, _p, _p]                          # leaves, slot layers
+        + [_i, _i, _i, _i, _i, _i]              # K, q, qmask, any, kstack,
+        #                                         kcap
+        + [_f] * 4                              # f32 constants
+        + [_p, _p, _p, _p, _p])})               # fout, iout, counters,
+#                                                 warp_stats, stream
 
 
 def wide_cast_cuda(origin, direction, t_min, t_max, ws: WideScene,

@@ -8,14 +8,15 @@ Two kinds of shared library are built into ``BUILD_DIR`` (git-ignored):
     compiled with g++.  Hosts without g++ keep the numpy builder
     (accel/bvh.py) — host build code, not a device path;
   * the CUDA kernels under ``kernels/csrc/``, compiled with nvcc for
-    ``sm_90a`` into a library with a plain C interface
-    (``build_shared_library``; bound by kernels/cluster_v2.py).
+    ``sm_90a`` into a library with a plain C interface, one a kernel,
+    each built at first use and bound by a ``CudaLibrary``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -26,10 +27,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 SAH_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "sah_builder.cpp")
+KERNEL_SRC = os.path.join(_PKG, "kernels", "csrc")
 
 # g++ flags of the SAH builder library (the JAX package builds its copy of
 # the source with the same flags)
 SAH_CFLAGS = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
+
+# nvcc flags of the CUDA kernel libraries: Hopper only, and no fused
+# multiply-add, so each kernel's float32 steps round as its plain version's
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -84,6 +91,47 @@ def build_shared_library(cmd: list[str], sources: list[str],
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def nvcc() -> str:
+    """Path of nvcc: ``$CUDA_HOME/bin`` (default /usr/local/cuda), else
+    PATH."""
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+class CudaLibrary:
+    """The library of one CUDA kernel, ``kernels/csrc/<source>``: built
+    with ``nvcc() + NVCC_FLAGS`` into ``BUILD_DIR/<name>`` at first use,
+    loaded through ctypes once, its C ``entries`` ({function: argtypes})
+    declared to return an int, the launch's CUDA error code.  Calling it
+    returns the loaded library; ``lib`` is None until then."""
+
+    def __init__(self, source: str, name: str, entries: dict):
+        self.source = os.path.join(KERNEL_SRC, source)
+        self.name, self.entries = name, entries
+        self.lib = None
+        self._lock = threading.Lock()
+
+    def __call__(self):
+        with self._lock:
+            if self.lib is None:
+                self.lib = self.load(build_shared_library(
+                    [nvcc()] + NVCC_FLAGS, [self.source], self.name))
+            return self.lib
+
+    def load(self, path: str):
+        """Load a library built at ``path`` (this one, or a patched copy
+        of its source) and declare its entries."""
+        lib = ctypes.CDLL(path)
+        for fn, argtypes in self.entries.items():
+            f = getattr(lib, fn)
+            f.restype = ctypes.c_int
+            f.argtypes = argtypes
+        return lib
 
 
 _F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")

@@ -19,6 +19,13 @@ sqrt misses the nearest float32 on some inputs, and CUDA turns a
 division by a scalar into a multiply by its reciprocal.  The CPU and the
 card so give the same rays, bit for bit: those of exact float32
 arithmetic done step by step.
+
+On a card ``generate_rays`` is one launch of the camera kernel
+(kernels/camera_rays.py, ``csrc/camera_rays.cu``): the same float32
+steps in the same order, each correctly rounded, so the same bits, with
+every scalar passed by value (no host to device copy, no stream sync).
+``_generate_rays`` is the plain version: the CPU's path, and what the
+tests hold the kernel against.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.types import DEFAULT_DEVICE, Rays, make_rays
+from ..kernels.camera_rays import camera_rays_cuda
 from ..utils.trace import span
 
 
@@ -90,27 +98,66 @@ def generate_rays(cam: CameraParams, width: int, height: int,
                   jitter=(0.5, 0.5), device=DEFAULT_DEVICE) -> Rays:
     """Generate width*height rays in raster order (row-major, top-left
     first).  ``jitter`` is the sub-pixel offset in [0,1): a pair of
-    scalars or of (H, W) arrays."""
+    scalars or of (H, W) arrays.  On a CUDA device one launch of the
+    camera kernel, with no host sync (and, for scalar jitter, no host to
+    device copy); elsewhere the plain version.  The card's rays equal the
+    CPU's bit for bit."""
+    dev = torch.device(device)
     with span("camera.rays"):
-        return _generate_rays(cam, width, height, jitter,
-                              torch.device(device))
+        if dev.type == "cuda":
+            return _generate_rays_cuda(cam, width, height, jitter, dev)
+        return _generate_rays(cam, width, height, jitter, dev)
+
+
+def _plane_scales(cam: CameraParams, width: int, height: int) -> tuple:
+    """(sx, sy), Python floats, that scale NDC u and v onto the image
+    plane: (half_w, tan(fov/2)) for a perspective camera, (half_w, half_h)
+    for an orthographic one."""
+    if cam.ortho:
+        half_h = cam.ortho_size * 0.5
+        return half_h * (width / height), half_h
+    tan_half = float(np.tan(np.deg2rad(cam.fov_degrees) * 0.5))
+    return tan_half * (width / height), tan_half
+
+
+def _f64(x, dev: torch.device) -> torch.Tensor:
+    """float32 values (a float is rounded to float32 first, as a float32
+    operation with a scalar operand does), held in float64."""
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device=dev).to(torch.float64)  # lint: off
+
+
+def _jitter_plane(j, width: int, height: int, dev: torch.device):
+    """One half of ``jitter`` as the camera kernel takes it: a number as
+    it is, an array as a contiguous (H, W) float32 tensor on ``dev`` (a
+    host array is copied once)."""
+    if not isinstance(j, torch.Tensor) and np.ndim(j) == 0:
+        return j
+    return torch.as_tensor(j, dtype=torch.float32, device=dev).broadcast_to(
+        (height, width)).contiguous()
+
+
+def _generate_rays_cuda(cam: CameraParams, width: int, height: int, jitter,
+                        dev: torch.device) -> Rays:
+    """``generate_rays`` on a card: one launch of the camera kernel."""
+    o, d, t_min, t_max = camera_rays_cuda(
+        width, height, cam.ortho, cam.origin, cam.basis,
+        [_jitter_plane(j, width, height, dev) for j in jitter],
+        _plane_scales(cam, width, height), dev)
+    return Rays(origin=o, direction=d, t_min=t_min, t_max=t_max)
 
 
 def _generate_rays(cam: CameraParams, width: int, height: int, jitter,
                    dev: torch.device) -> Rays:
-    """``generate_rays`` on ``dev``, inside its span."""
+    """The plain version of ``generate_rays`` on ``dev``, inside its
+    span: each step a float64 op rounded to float32 (module docstring)."""
 
     def f64(x):
-        """float32 values (a float is rounded to float32 first, as a float32
-        operation with a scalar operand does), held in float64."""
-        return torch.as_tensor(x, dtype=torch.float32,
-                               device=dev).to(torch.float64)  # lint: off
+        return _f64(x, dev)
 
     with span("camera.grid"):
         origin, basis = f64(cam.origin), f64(cam.basis)
         jx, jy = (f64(j) for j in jitter)
-    with span("camera.grid"):
-        # float64 steps rounded to float32 (module docstring)
         x = torch.arange(width, dtype=torch.float64,  # lint: off
                          device=dev)[None, :]
         y = torch.arange(height, dtype=torch.float64,  # lint: off
@@ -118,17 +165,14 @@ def _generate_rays(cam: CameraParams, width: int, height: int, jitter,
         w64, h64 = f64(width), f64(height)
     with span("camera.ndc"):
         u = _r32(_r32(2.0 * _r32(x + jx)) / w64) - 1.0
-    with span("camera.ndc"):
         v = 1.0 - _r32(_r32(2.0 * _r32(y + jy)) / h64)
-    with span("camera.ndc"):
         u, v = torch.broadcast_tensors(_r32(u), _r32(v))
+    sx, sy = _plane_scales(cam, width, height)
 
     if not cam.ortho:
         with span("camera.plane"):
-            tan_half = float(np.tan(np.deg2rad(cam.fov_degrees) * 0.5))
-            half_w = tan_half * (width / height)
-            a = _r32(u * f64(half_w))[..., None]
-            b = _r32(v * f64(tan_half))[..., None]
+            a = _r32(u * f64(sx))[..., None]
+            b = _r32(v * f64(sy))[..., None]
         with span("camera.dirs"):
             world = _r32(_r32(_r32(a * basis[:, 0]) + _r32(b * basis[:, 1]))
                          - basis[:, 2])
@@ -138,10 +182,8 @@ def _generate_rays(cam: CameraParams, width: int, height: int, jitter,
             o = origin.to(torch.float32).expand(d.shape)
     else:
         with span("camera.dirs"):
-            half_h = cam.ortho_size * 0.5
-            half_w = half_h * (width / height)
-            uw = _r32(u * f64(half_w))[..., None]
-            vh = _r32(v * f64(half_h))[..., None]
+            uw = _r32(u * f64(sx))[..., None]
+            vh = _r32(v * f64(sy))[..., None]
             o = _r32(_r32(origin + _r32(basis[:, 0] * uw))
                      + _r32(basis[:, 1] * vh))
             o = o.to(torch.float32)

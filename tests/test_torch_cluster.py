@@ -182,7 +182,7 @@ def test_wrapper_routes_by_device(small):
     with pytest.raises(ValueError, match="CUDA"):
         cluster_cast_cuda(*args)             # CPU tensors: no fallback
     assert cluster_cast_cuda.launches == before
-    assert cluster_v2._LIB is None           # nvcc was never needed
+    assert cluster_v2.cuda_library.lib is None   # nvcc was never needed
 
 
 def test_tpu_knobs_accepted_and_ignored(small):

@@ -102,3 +102,79 @@ def test_a_changed_build_command_rebuilds(tmp_path, monkeypatch):
     pnative.build_shared_library(fake + ["-O3", "-cudart", "shared"],
                                  [str(src)], "k.so")
     assert runs.read_text() == "xx"
+
+
+def test_a_kernel_library_is_built_once_and_declared(tmp_path, monkeypatch):
+    """``CudaLibrary`` builds its source at first call, with ``nvcc()`` and
+    ``NVCC_FLAGS``, once however many threads ask, loads it once and
+    declares each entry to return an int."""
+    import ctypes
+    import sys
+    import threading
+
+    monkeypatch.setattr(pnative, "BUILD_DIR", str(tmp_path / "build"))
+    src = tmp_path / "add.cu"
+    src.write_text("int mrt_add(int a, int b) { return a + b; }\n")
+    runs = tmp_path / "runs"
+    # a stand-in nvcc: checks it got NVCC_FLAGS, builds the source as C
+    # with the host's compiler and counts its runs
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import subprocess, sys\n"
+        "a = sys.argv[1:]; o = a[a.index('-o') + 1]\n"
+        f"assert a[:a.index('-o')] == {pnative.NVCC_FLAGS!r}\n"
+        f"open({str(runs)!r}, 'a').write('x')\n"
+        "subprocess.run(['gcc', '-shared', '-fPIC', '-x', 'c', '-o', o, "
+        "a[-1]], check=True)\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(pnative, "nvcc", lambda: str(nvcc))
+    lib = pnative.CudaLibrary(str(src), "libadd.so", {
+        "mrt_add": [ctypes.c_int, ctypes.c_int]})
+    assert lib.lib is None and lib.source == str(src)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(lib()))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert runs.read_text() == "x"
+    assert len(got) == 4 and all(g is lib.lib for g in got)
+    assert lib().mrt_add(2, 40) == 42
+    assert lib().mrt_add.restype is ctypes.c_int
+    assert lib.load(lib.lib._name).mrt_add.argtypes == [ctypes.c_int] * 2
+    assert runs.read_text() == "x"
+
+
+def c_entry_types(source: str, entry: str) -> list:
+    """The ctypes type of each parameter of the C entry ``entry`` in
+    ``source``: any pointer a void pointer, int an int, float a float."""
+    import ctypes
+    import re
+
+    text = open(source).read()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    assert m, entry
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    return [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
+            for p in (q.strip() for q in m.group(1).split(","))]
+
+
+@pytest.mark.parametrize("module", ["cluster_v2", "traverse_pallas",
+                                    "cluster_tlas", "camera_rays"])
+def test_each_kernel_library_declares_its_c_entry(module):
+    """Each kernel's library object names a source under kernels/csrc/
+    and declares every C entry with the source's own parameter types, in
+    order; nothing is built to check it."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"messyerraytracer_tpu_torch.kernels.{module}")
+    lib = mod.cuda_library
+    assert isinstance(lib, pnative.CudaLibrary)
+    assert os.path.dirname(lib.source) == pnative.KERNEL_SRC
+    assert os.path.exists(lib.source) and lib.name.endswith(".so")
+    assert lib.entries
+    for entry, argtypes in lib.entries.items():
+        assert list(argtypes) == c_entry_types(lib.source, entry), entry

@@ -33,6 +33,7 @@ from messyerraytracer_tpu.scene.scene import (
     build_scene_from_tri_array as jax_build)
 from messyerraytracer_tpu_torch.accel.tlas import SceneTLAS
 from messyerraytracer_tpu_torch.core import attributes as pattr
+from messyerraytracer_tpu_torch.render import camera as pcam
 from messyerraytracer_tpu_torch.render import framebuffer as pfb
 from messyerraytracer_tpu_torch.render import hdr as phdr
 from messyerraytracer_tpu_torch.render import reflections as prefl
@@ -429,25 +430,169 @@ def test_profiler_ranges_split_a_frame(world):
     assert names.count("cast") == 2
 
 
-@pytest.mark.gpu
-def test_camera_rays_on_the_card_equal_cpu():
-    """Rays are built on the card, bit for bit the CPU's: perspective at
-    1920x1080 with a Halton jitter, per-pixel jitter, orthographic."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+# the benchmark's primary cells' cameras (raybench/configs/*.json) and frame
+# sizes, orbited about y as raybench/kinds/primary_frames.py orbits them
+CELL_CAMERAS = (((0.0, 26.0, 55.0), (0.0, 1.0, 0.0), 60.0, (1920, 1080)),
+                ((0.0, 14.0, 30.0), (0.0, 2.0, 0.0), 60.0, (1024, 768)))
+ORBIT_YAWS = (0.0, 1.0, 90.0, 179.5, 359.0)
+BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+
+
+def orbit(eye, yaw_degrees):
+    a = np.deg2rad(yaw_degrees)
+    x, y, z = (float(c) for c in eye)
+    return (x * np.cos(a) + z * np.sin(a), y, -x * np.sin(a) + z * np.cos(a))
+
+
+def camera_cases():
+    """(camera, width, height, jitter) of the card test: the cells' cameras
+    at their sizes and orbit yaws, both jitter extremes, odd sizes, per-pixel
+    jitter, orthographic, and an up parallel to the view (+X fallback)."""
     rng = np.random.default_rng(12)
+    halton = (pren.halton(1, 2), pren.halton(1, 3))
     persp = CameraParams.look_at((0, 26, 55), (0, 1, 0), fov_degrees=60.0)
     ortho = CameraParams.look_at((0, 2, 5), (0, 0, 0), ortho=True)
-    for cam, w, h, jit in (
-            (persp, 1920, 1080, (pren.halton(1, 2), pren.halton(1, 3))),
-            (persp, W, H, tuple(rng.uniform(0, 1, (H, W)).astype(np.float32)
-                                for _ in range(2))),
-            (ortho, W, H, (0.5, 0.5))):
+    down = CameraParams.look_at((0, 9, 0), (0, 0, 0), up=(0, 1, 0))
+    cases = []
+    for eye, target, fov, (w, h) in CELL_CAMERAS:
+        for yaw in ORBIT_YAWS:
+            cam = CameraParams.look_at(orbit(eye, yaw), target,
+                                       fov_degrees=fov)
+            cases.append((cam, w, h, halton))
+        for j in (0.0, BELOW_ONE):
+            cases.append((cam, w, h, (j, j)))
+    for w, h in ((1, 1), (7, 5), (33, 17)):
+        for cam in (persp, ortho, down):
+            for jit in ((0.5, 0.5), (0.0, BELOW_ONE),
+                        tuple(rng.uniform(0, 1, (h, w)).astype(np.float32)
+                              for _ in range(2))):
+                cases.append((cam, w, h, jit))
+    cases += [(persp, W, H, tuple(rng.uniform(0, 1, (H, W)).astype(
+                  np.float32) for _ in range(2))),
+              (ortho, W, H, (0.5, 0.5)), (down, 1920, 1080, halton)]
+    return cases
+
+
+@pytest.mark.gpu
+def test_camera_rays_on_the_card_equal_cpu():
+    """Rays are built on the card, bit for bit the CPU's, by one launch of
+    the camera kernel a call: the benchmark cells' cameras at 1920x1080 and
+    1024x768 over orbit yaws 0-359, jitter 0 and the largest float32 below
+    1, odd sizes, per-pixel jitter, orthographic, and an up parallel to
+    the view.  A profiled call links one kernel to ``camera.launch``,
+    counts the frame's rays in ``camera.kernel_rays`` and opens none of
+    the plain version's stages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from messyerraytracer_tpu_torch.kernels.camera_rays import (
+        camera_rays_cuda)
+    from messyerraytracer_tpu_torch.utils import trace
+
+    for cam, w, h, jit in camera_cases():
+        launches = camera_rays_cuda.launches
         a = generate_rays(cam, w, h, jitter=jit, device="cuda")
+        assert camera_rays_cuda.launches == launches + 1
         b = generate_rays(cam, w, h, jitter=jit, device="cpu")
         assert a.origin.device.type == "cuda"
         for f in ("origin", "direction", "t_min", "t_max"):
-            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (
+                f, cam, w, h)
+    cam, w, h, jit = camera_cases()[0]
+    torch.cuda.synchronize()
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        generate_rays(cam, w, h, jitter=jit, device="cuda")
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    linked = [k for e in events if e.name == "camera.launch"
+              for k in e.kernels]
+    assert len(kernels) == len(linked) == 1, [k.name for k in kernels]
+    assert "camera_rays" in linked[0].name
+    # the kernel's counter: every ray of the frame, from the one launch
+    assert trace.counters() == {"camera.kernel_rays": w * h}
+    trace.reset()
+    names = {e.name for e in events}
+    assert not {"camera.grid", "camera.ndc", "camera.plane", "camera.dirs",
+                "camera.length", "camera.unit", "camera.make"} & names
+
+
+def f64_values(x):
+    """What the plain version's ``_f64`` makes of ``x``, as float64."""
+    return [float(v) for v in
+            pcam._f64(x, torch.device("cpu")).reshape(-1).tolist()]
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_camera_kernel_scalars_equal_the_plain_versions(case):
+    """The camera kernel's scalars, rounded to float32 on the host and
+    passed by value, are the float32 values the plain version's ``_f64``
+    uploads: origin, basis, jitter, width, height, the plane's scales
+    (half_w and tan(fov/2), or half_w and half_h), t_min and t_max.  An
+    (H, W) jitter goes in by pointer, a scalar pair with none."""
+    from messyerraytracer_tpu_torch.kernels.camera_rays import kernel_args
+
+    cpu = torch.device("cpu")
+    cases = camera_cases()
+    cam, w, h, jit = cases[case * len(cases) // 12]
+    if case % 3 == 2:           # the fov and the ortho size vary too
+        cam = dataclasses.replace(cam, fov_degrees=17.3 + 11 * case,
+                                  ortho_size=0.7 * case)
+    planes = [pcam._jitter_plane(j, w, h, cpu) for j in jit]
+    outs = [torch.empty(1) for _ in range(4)]
+    args = kernel_args(w, h, cam.ortho, cam.origin, cam.basis, planes,
+                       pcam._plane_scales(cam, w, h), outs)
+    if cam.ortho:
+        sx, sy = cam.ortho_size * 0.5 * (w / h), cam.ortho_size * 0.5
+    else:
+        sy = float(np.tan(np.deg2rad(cam.fov_degrees) * 0.5))
+        sx = sy * (w / h)
+    rays = generate_rays(cam, 1, 1, device="cpu")
+    jitter = [0.0 if isinstance(p, torch.Tensor) else f64_values(j)[0]
+              for p, j in zip(planes, jit)]
+    want = ([w, h, int(cam.ortho)] + f64_values(cam.origin)
+            + f64_values(cam.basis) + jitter
+            + [p.data_ptr() if isinstance(p, torch.Tensor) else None
+               for p in planes]
+            + f64_values([w, h, sx, sy])
+            + [float(rays.t_min[0]), float(rays.t_max[0])]
+            + [t.data_ptr() for t in outs])
+    assert len(args) == len(want) == 29
+    for k, (a, b) in enumerate(zip(args, want)):
+        assert type(a) is type(b) and a == b, (k, a, b)
+        if isinstance(a, float):
+            assert np.float32(a).view(np.int32) == np.float32(b).view(
+                np.int32), (k, a, b)
+    for p, j in zip(planes, jit):
+        if isinstance(p, torch.Tensor):
+            assert torch.equal(p, pcam._f64(j, cpu).to(torch.float32))
+
+
+def test_cpu_camera_rays_never_build_or_load_the_kernel(monkeypatch):
+    """A CPU call takes the plain version: it neither builds nor loads the
+    camera library and counts no launch; the kernel's wrapper refuses a
+    CPU device."""
+    from messyerraytracer_tpu_torch import native
+    from messyerraytracer_tpu_torch.kernels import camera_rays as kcam
+
+    def refuse(*a, **k):
+        raise AssertionError("the camera library was asked for")
+
+    loader = kcam.cuda_library
+    launches, lib = kcam.camera_rays_cuda.launches, loader.lib
+    monkeypatch.setattr(kcam, "cuda_library", refuse)
+    monkeypatch.setattr(native, "build_shared_library", refuse)
+    for cam, w, h, jit in camera_cases()[-12:]:
+        generate_rays(cam, w, h, jitter=jit, device="cpu")
+    assert kcam.camera_rays_cuda.launches == launches
+    assert loader.lib is lib    # None unless a card test loaded it
+    with pytest.raises(ValueError, match="CUDA"):
+        kcam.camera_rays_cuda(4, 3, False, (0, 0, 0), np.eye(3), (0.5, 0.5),
+                              (1.0, 1.0), "cpu")
 
 
 @pytest.mark.gpu
