@@ -151,6 +151,16 @@ from messyerraytracer_tpu_torch.bench import (
     headline_camera,
     headline_tlas,
 )
+from messyerraytracer_tpu_torch.kernels import (
+    camera_rays,
+    cluster_tlas,
+    cluster_v2,
+    traverse_pallas,
+)
+
+# each kernel's library; its ``launches`` counts the kernel's launches
+B1, B4 = cluster_v2.cuda_library, traverse_pallas.cuda_library
+R1, C1 = cluster_tlas.cuda_library, camera_rays.cuda_library
 
 FRAME = (1920, 1080)
 SLICE = 262_144        # rays of the frame held kernel == plain per layout
@@ -206,10 +216,6 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 def build_kernels(card: str) -> None:
     """Build the four kernel libraries, one nvcc each, started together."""
-    from messyerraytracer_tpu_torch.kernels import (camera_rays, cluster_tlas,
-                                                    cluster_v2,
-                                                    traverse_pallas)
-
     t0 = time.time()
     errors = []
 
@@ -406,7 +412,7 @@ def phase_kernel_vs_plain(card: str, device) -> None:
 
     flat, ct = small_scenes(device)
     tie_flat, tie_ct = small_scenes(device, copies=2)
-    before = cluster_cast_cuda.launches
+    before = B1.launches
     worst = 0.0
 
     def case(name, what, rays, cs, **kw):
@@ -452,7 +458,7 @@ def phase_kernel_vs_plain(card: str, device) -> None:
     prim = iout[0][iout[0] >= 0]
     check(prim.numel() > 0 and bool((prim < len(small_flat_tris()[0])).all()),
           "tie scene: rays hit, each on the lower copy")
-    check(cluster_cast_cuda.launches > before, "kernel launch count rose")
+    check(B1.launches > before, "kernel launch count rose")
     print(f"[{card}] phase 1 ok: worst max_abs_err {worst}; tie scene: "
           f"{prim.numel()} hits, all on the lower copy", flush=True)
 
@@ -484,9 +490,9 @@ def phase_camera(card: str, device) -> dict:
     for name, cam, w, h in (("1920x1080", headline_camera(), 1920, 1080),
                             ("1024x768", camera_99k(), 1024, 768)):
         for jit in ((0.5, 0.5), (halton(1, 2), halton(1, 3))):
-            before = kcam.camera_rays_cuda.launches
+            before = C1.launches
             a = mrt.generate_rays(cam, w, h, jitter=jit, device=device)
-            check(kcam.camera_rays_cuda.launches == before + 1,
+            check(C1.launches == before + 1,
                   f"camera {name}: one launch a call")
             for dev in (device, cpu):
                 b = rcam._generate_rays(cam, w, h, jit, dev)
@@ -584,11 +590,11 @@ def phase_main_path(card: str, device):
           == (HEADLINE_INSTANCES, HEADLINE_WORLD_TRIS), "the headline scene")
 
     # ---- the main path's own run: counts reset just before, read after
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     hi, si, _, inst = tlas.cast_rays_instanced(rays)
     hf, sf = flat.cast_rays(rays)
     torch.cuda.synchronize()
-    launches = cluster_cast_cuda.launches
+    launches = B1.launches
     check(launches > 0, "main path launched kernel B1")
     for name, h, s in (("instanced", hi, si), ("flat", hf, sf)):
         check(int(s.stack_drops) == 0, f"{name}: stack_drops == 0")
@@ -654,7 +660,7 @@ def phase_wide_vs_plain(card: str, device) -> None:
     import torch
 
     from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
-        cast_rays_wide, wide_cast_cuda)
+        cast_rays_wide)
     from messyerraytracer_tpu_torch.scene.scene import (
         build_scene_from_tri_array)
 
@@ -665,7 +671,7 @@ def phase_wide_vs_plain(card: str, device) -> None:
              ("sparse warps", random_rays(8192, 3, 8.0, device,
                                           live_per_warp=4), 1),
              ("tie scene", random_rays(8192, 4, 8.0, device), 2))
-    before = wide_cast_cuda.launches
+    before = B4.launches
     worst = 0.0
     for branching in (8, 2):
         def scene(copies):
@@ -698,11 +704,11 @@ def phase_wide_vs_plain(card: str, device) -> None:
             if what == "random" and not kw:
                 closest = (fk, ik)
         # B5's contract: the streamed cast launches the same kernel
-        n0 = wide_cast_cuda.launches
+        n0 = B4.launches
         hs, ss, _ = cast_rays_wide(rays, ws, stream_leaves=True,
                                    stream_nodes=True)
         torch.cuda.synchronize()
-        check(wide_cast_cuda.launches == n0 + 1, "streamed cast launched B4")
+        check(B4.launches == n0 + 1, "streamed cast launched B4")
         check(torch.equal(hs.t, closest[0][0])
               and torch.equal(hs.prim_id >= 0, closest[1][0] >= 0),
               "streamed cast == closest-hit kernel (== plain)")
@@ -710,7 +716,7 @@ def phase_wide_vs_plain(card: str, device) -> None:
         print(f"[{card}] phase 3 branching {branching} streamed "
               f"(stream_leaves, stream_nodes): == kernel == plain",
               flush=True)
-    check(wide_cast_cuda.launches > before, "B4 launch count rose")
+    check(B4.launches > before, "B4 launch count rose")
     print(f"[{card}] phase 3 ok: worst max_abs_err {worst}", flush=True)
 
 
@@ -723,7 +729,7 @@ def phase_pallas_path(card: str, device, ctx: dict) -> dict:
     from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
         cast_rays_cluster_tlas)
     from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        cast_rays_cluster_tlas_v2, cast_rays_cluster_v2, cluster_cast_cuda)
+        cast_rays_cluster_tlas_v2, cast_rays_cluster_v2)
     from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
         cast_rays_wide, wide_cast_cuda)
     from messyerraytracer_tpu_torch.kernels.wide import build_wide_scene
@@ -744,14 +750,14 @@ def phase_pallas_path(card: str, device, ctx: dict) -> dict:
           flush=True)
 
     # ---- the pallas path's own run: counts reset just before, read after
-    wide_cast_cuda.launches = 0
-    cluster_cast_cuda.launches = 0
+    B4.launches = 0
+    B1.launches = 0
     hits, stats = scene.cast_rays(rays)
     occ = scene.any_hit_rays(rays)
     torch.cuda.synchronize()
-    launches = wide_cast_cuda.launches
+    launches = B4.launches
     check(launches > 0, "pallas path launched kernel B4")
-    check(cluster_cast_cuda.launches == 0, "pallas path did not launch B1")
+    check(B1.launches == 0, "pallas path did not launch B1")
     check(int(stats.stack_drops) == 0, "pallas 1080p: stack_drops == 0")
     check(bool(torch.isfinite(hits.t).all()), "pallas 1080p: finite t")
     check(torch.equal(occ, hits.hit), "any-hit occluded == closest hit")
@@ -759,7 +765,7 @@ def phase_pallas_path(card: str, device, ctx: dict) -> dict:
           f", stack_drops {int(stats.stack_drops)}, tri_tests/ray "
           f"{int(stats.tri_tests) / n}, pops/ray "
           f"{int(stats.bvh_nodes_visited) / n}; B4 launches {launches}, B1 "
-          f"launches {cluster_cast_cuda.launches}", flush=True)
+          f"launches {B1.launches}", flush=True)
     ok = parity(scene.cast_rays(sub)[0], hb)
     print(f"[{card}] parity pallas (8-wide) vs brute (4096 rays): {ok}",
           flush=True)
@@ -821,11 +827,11 @@ def phase_pallas_path(card: str, device, ctx: dict) -> dict:
 
     # ---- B3: the v1 cluster entry points run on B1
     flat, tlas = ctx["flat"], ctx["tlas"]
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     h1, s1, _ = cast_rays_cluster(rays, flat.cluster)
     hi1, _, _, ii1 = cast_rays_cluster_tlas(rays, tlas._ctlas)
     torch.cuda.synchronize()
-    b3 = cluster_cast_cuda.launches
+    b3 = B1.launches
     check(b3 == 2, "B3 entry points launched B1")
     h2, s2, _ = cast_rays_cluster_v2(rays, flat.cluster)
     hi2, _, _, ii2 = cast_rays_cluster_tlas_v2(rays, tlas._ctlas)
@@ -993,10 +999,6 @@ def phase_service(card: str, device, ctx: dict) -> dict:
     from messyerraytracer_tpu_torch.core.brute import cast_rays_brute, parity
     from messyerraytracer_tpu_torch.dispatch.dispatcher import RayDispatcher
     from messyerraytracer_tpu_torch.dispatch.morton import sort_rays_6d
-    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        cluster_cast_cuda)
-    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
-        wide_cast_cuda)
 
     t0 = time.time()
     svc = headline_service(ctx["tlas"], device)
@@ -1013,17 +1015,17 @@ def phase_service(card: str, device, ctx: dict) -> dict:
     n = rays.count
 
     # ---- the service path's own run: counts reset just before, read after
-    cluster_cast_cuda.launches = 0
-    wide_cast_cuda.launches = 0
+    B1.launches = 0
+    B4.launches = 0
     res = {(mode, coherent): svc.submit(RayQuery(rays, mode=mode,
                                                  coherent=coherent))
            for mode in (MODE_NEAREST, MODE_ANY_HIT)
            for coherent in (False, True)}
     torch.cuda.synchronize()
-    b1 = cluster_cast_cuda.launches
-    check(b1 == 4 and wide_cast_cuda.launches == 0,
+    b1 = B1.launches
+    check(b1 == 4 and B4.launches == 0,
           f"service: one B1 launch per submit (B1 {b1}, B4 "
-          f"{wide_cast_cuda.launches})")
+          f"{B4.launches})")
     hs, ss = res[MODE_NEAREST, False].hits, res[MODE_NEAREST, False].stats
     hu, su = res[MODE_NEAREST, True].hits, res[MODE_NEAREST, True].stats
     check(same_hits(hs, hu), "B1: sorted == unsorted, every field")
@@ -1070,13 +1072,13 @@ def phase_service(card: str, device, ctx: dict) -> dict:
     # ---- the dispatcher on phase 4's 8-wide pallas scene, kernel B4
     pallas = ctx["pallas"]
     pd = RayDispatcher(pallas)
-    wide_cast_cuda.launches = 0
+    B4.launches = 0
     hp_s, sp_s = pd.cast_rays(rays)
     hp_u, sp_u = pd.cast_rays(rays, coherent=True)
     op_s = pd.any_hit_rays(rays)
     op_u = pd.any_hit_rays(rays, coherent=True)
     torch.cuda.synchronize()
-    b4 = wide_cast_cuda.launches
+    b4 = B4.launches
     check(b4 == 4, f"dispatcher on pallas: one B4 launch per cast ({b4})")
     check(same_hits(hp_s, hp_u), "B4: sorted == unsorted, every field")
     check(torch.equal(op_s, op_u) and torch.equal(op_s, hp_s.hit),
@@ -1113,8 +1115,6 @@ def phase_renderer(card: str, device, ctx: dict) -> int:
     import torch
 
     import messyerraytracer_tpu_torch as mrt
-    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        cluster_cast_cuda)
     from messyerraytracer_tpu_torch.render import framebuffer as fb
     from messyerraytracer_tpu_torch.render.renderer import (
         RayRenderer, RenderSettings, halton, shadow_rays)
@@ -1132,14 +1132,14 @@ def phase_renderer(card: str, device, ctx: dict) -> int:
                                                 accumulate=False))
 
     # ---- the renderer's own run: counts reset just before, read after
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     reset_camera()
     color.render_frame()
-    per_color = cluster_cast_cuda.launches
+    per_color = B1.launches
     f_color = color.render_frame()
     f_debug = debug.render_frame()
     torch.cuda.synchronize()
-    launches = cluster_cast_cuda.launches
+    launches = B1.launches
     check(per_color == 2 and launches == 5,
           f"renderer: B1 per COLOR frame {per_color} (trace + shadows), "
           f"{launches} in the run")
@@ -1195,8 +1195,6 @@ def phase_path_tracers(card: str, device, ctx: dict) -> int:
     import torch
 
     from messyerraytracer_tpu_torch.dispatch.morton import sort_perm_6d
-    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        cluster_cast_cuda)
     from messyerraytracer_tpu_torch.render.pathtrace import dead_unless
     from messyerraytracer_tpu_torch.render.wavefront import (
         WavefrontPathTracer)
@@ -1214,11 +1212,11 @@ def phase_path_tracers(card: str, device, ctx: dict) -> int:
         pt = WavefrontPathTracer(scene, lights, env, mats, bounds=bounds)
         check(pt.bounds is not None, f"{name}: carried-sort frame")
         # ---- this tracer's own run: counts reset just before, read after
-        cluster_cast_cuda.launches = 0
+        B1.launches = 0
         img, wave = pt.trace_frame(rays, max_bounces=3, sample_index=1,
                                    with_counts=True)
         torch.cuda.synchronize()
-        launches = cluster_cast_cuda.launches
+        launches = B1.launches
         total += launches
         check(launches == 8, f"{name} PT: B1 per frame {launches} (4 extend "
               f"+ 4 connect)")
@@ -1507,7 +1505,7 @@ def time_refit_kernel(card: str, ct) -> tuple:
           f"through its wrapper {wrapper_ms} ms a call (CUDA events over "
           f"{REFIT_ITERS}); bound {bound_ms} ms ({moved} bytes, {what}); "
           f"plain version {plain_ms} ms; wrapper launches so far "
-          f"{ctl.refit_pairs_cuda.launches}", flush=True)
+          f"{R1.launches}", flush=True)
     return kernel_ms, wrapper_ms, plain_ms, bound_ms
 
 
@@ -1524,11 +1522,9 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
     from messyerraytracer_tpu_torch.core.brute import cast_rays_brute, parity
     from messyerraytracer_tpu_torch.debug import debug as dbg
     from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
-        refit_pairs_cuda, set_transforms)
+        set_transforms)
     from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        cluster_cast_cuda, cluster_cast_plain)
-    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
-        wide_cast_cuda)
+        cluster_cast_plain)
     from messyerraytracer_tpu_torch.scene.scene import _refit_slots
     from messyerraytracer_tpu_torch.scene.serialize import (
         load_scene, save_scene)
@@ -1551,10 +1547,10 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
     moves = headline_moves(tlas)
     check(len(moves) == 100, f"100 moves ({len(moves)})")
     cpu_ct = to_device(tlas._ctlas, torch.device("cpu"))
-    refit_pairs_cuda.launches = 0
+    R1.launches = 0
     _, move_s = sync_s(lambda: [tlas.set_transform(k, m)
                                 for k, m in moves.items()])
-    lr = refit_pairs_cuda.launches
+    lr = R1.launches
     check(lr == 100, f"(a) one refit launch per set_transform ({lr})")
     k0 = next(iter(moves))
     split_a = device_split(lambda: tlas.set_transform(k0, moves[k0]),
@@ -1569,10 +1565,10 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
               f"pair tree {f}: card == CPU bit for bit")
     refit_ms, refit_call_ms, refit_plain_ms, refit_bound = \
         time_refit_kernel(card, ct)
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     hi, si, _, inst = tlas.cast_rays_instanced(rays)
     torch.cuda.synchronize()
-    la = cluster_cast_cuda.launches
+    la = B1.launches
     b1 += la
     check(la == 1 and int(si.stack_drops) == 0,
           f"(a) instanced frame: B1 launches {la}, stack_drops "
@@ -1619,10 +1615,10 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
                 getattr(ref.cluster, f))
                for f in ("node_box", "tri", "cl_anchor", "cl_aabb")]):
         check(bit_equal(a, b), f"(b) refit {name}: card == CPU bit for bit")
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     hf, sf = twin.cast_rays(rays)
     torch.cuda.synchronize()
-    lb = cluster_cast_cuda.launches
+    lb = B1.launches
     b1 += lb
     check(int(sf.stack_drops) == 0, "(b) twin frame stack_drops == 0")
     ok_b = parity(twin.cast_rays(sub)[0], hb, atol=atol)
@@ -1648,13 +1644,13 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
     split_c = device_split(lambda: pallas.refit(world[:, 0], world[:, 1],
                                                 world[:, 2]),
                            ("refit.scene",))
-    wide_cast_cuda.launches = 0
-    cluster_cast_cuda.launches = 0
+    B4.launches = 0
+    B1.launches = 0
     hp, sp = disp.cast_rays(rays)
     torch.cuda.synchronize()
-    lc = wide_cast_cuda.launches
+    lc = B4.launches
     b4 += lc
-    check(lc == 1 and cluster_cast_cuda.launches == 0
+    check(lc == 1 and B1.launches == 0
           and int(sp.stack_drops) == 0,
           f"(c) pallas frame: B4 launches {lc}, stack_drops "
           f"{int(sp.stack_drops)}")
@@ -1675,11 +1671,11 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
         svc.set_transform(k, m)
     _, svc_s = sync_s(svc.refit)
     srays = service_rays(svc.scene, device)
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     rs = svc.submit(RayQuery(srays))
     ru = svc.submit(RayQuery(srays, coherent=True))
     torch.cuda.synchronize()
-    ld = cluster_cast_cuda.launches
+    ld = B1.launches
     b1 += ld
     check(ld == 2, f"(d) service: one B1 launch per submit ({ld})")
     check(same_hits(rs.hits, ru.hits), "(d) sorted == unsorted bit for bit")
@@ -1698,7 +1694,7 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
 
     # ---- (e) debug draw modes on a 1920x1080 grid over the refit twin
     w, h = FRAME
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     modes = {}
     for mode in range(7):
         r, mode_s = sync_s(lambda: dbg.cast_debug_rays(
@@ -1710,7 +1706,7 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
         modes[mode] = {"ms": mode_s * 1e3, "cast_ms": r.elapsed_ms,
                        "mean": float(r.colors.mean())}
     torch.cuda.synchronize()
-    le = cluster_cast_cuda.launches
+    le = B1.launches
     b1 += le
     check(le == 9, f"(e) B1 launches: 7 casts + 2 heatmap counts ({le})")
     grid = r.rays
@@ -1736,10 +1732,10 @@ def phase_dynamic(card: str, device, ctx: dict) -> dict:
         _, save_s = sync_s(lambda: save_scene(path, twin))
         size = os.path.getsize(path)
         loaded, load_s = sync_s(lambda: load_scene(path, device=device))
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     hl, _ = loaded.cast_rays(rays)
     torch.cuda.synchronize()
-    lf = cluster_cast_cuda.launches
+    lf = B1.launches
     b1 += lf
     check(lf == 1 and same_hits(hl, hf),
           "(f) the loaded twin's frame == the saved twin's bit for bit")
@@ -1789,13 +1785,8 @@ def peak_mib(fn):
 
 
 def reset_launches() -> None:
-    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        cluster_cast_cuda)
-    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
-        wide_cast_cuda)
-
-    cluster_cast_cuda.launches = 0
-    wide_cast_cuda.launches = 0
+    B1.launches = 0
+    B4.launches = 0
     reset_camera()
 
 
@@ -1805,19 +1796,13 @@ CAMERA_RUNS: dict = {}
 
 
 def reset_camera() -> None:
-    from messyerraytracer_tpu_torch.kernels.camera_rays import (
-        camera_rays_cuda)
-
-    camera_rays_cuda.launches = 0
+    C1.launches = 0
 
 
 def read_camera(path: str) -> int:
     """The camera kernel's launches since ``reset_camera`` (or
     ``reset_launches``), added to ``CAMERA_RUNS[path]``."""
-    from messyerraytracer_tpu_torch.kernels.camera_rays import (
-        camera_rays_cuda)
-
-    n = camera_rays_cuda.launches
+    n = C1.launches
     CAMERA_RUNS[path] = CAMERA_RUNS.get(path, 0) + n
     return n
 
@@ -1826,13 +1811,8 @@ def read_launches() -> tuple[int, int]:
     """(B1, B4) launches since ``reset_launches``, after a synchronize."""
     import torch
 
-    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        cluster_cast_cuda)
-    from messyerraytracer_tpu_torch.kernels.traverse_pallas import (
-        wide_cast_cuda)
-
     torch.cuda.synchronize()
-    return cluster_cast_cuda.launches, wide_cast_cuda.launches
+    return B1.launches, B4.launches
 
 
 def small_tlas(device):
@@ -2485,20 +2465,18 @@ def phase_bench(card: str, device, ctx: dict) -> int:
 
     from messyerraytracer_tpu_torch import bench
     from messyerraytracer_tpu_torch.dispatch.dispatcher import RayDispatcher
-    from messyerraytracer_tpu_torch.kernels.cluster_v2 import (
-        cluster_cast_cuda)
     from messyerraytracer_tpu_torch.render.wavefront import (
         WavefrontPathTracer)
     from messyerraytracer_tpu_torch.scene.scene import (
         build_scene_from_tri_array)
 
     # ---- the bench's own run: counts reset just before, read after
-    cluster_cast_cuda.launches = 0
+    B1.launches = 0
     reset_camera()
     t0 = time.time()
     out = bench.run(device)
     torch.cuda.synchronize()
-    launches = cluster_cast_cuda.launches
+    launches = B1.launches
     cam_launches = read_camera("bench.run")
     e = out["extra"]
     print(f"[{card}] phase 9 bench.run {time.time() - t0} s, B1 launches "

@@ -48,9 +48,9 @@ from ..core.types import (
     Rays,
     RayStats,
     Triangles,
+    as_int32,
     safe_inv_direction,
 )
-from ..kernels.cluster_v2 import _as_int32
 from ..kernels.wide import _collapse8
 from ..utils.trace import span
 
@@ -464,7 +464,7 @@ def _cast_frontier(rays: Rays, fs: FrontierScene, layers, query_mask: int,
     (best t, best slot, u, v, nodes_visited, tri_tests) per ray."""
     o, d = rays.origin, rays.direction
     inv = safe_inv_direction(d)
-    qm = _as_int32(query_mask)
+    qm = as_int32(query_mask)
     parts = []
     for s in range(0, max(rays.count, 1), RAY_CHUNK):
         e = min(s + RAY_CHUNK, rays.count)

@@ -36,9 +36,9 @@ from ..core.types import (
     Hits,
     Rays,
     RayStats,
+    as_int32,
     safe_inv_direction,
 )
-from ..kernels.cluster_v2 import _as_int32
 from ..utils.trace import span
 from .bvh import _bvh_host, build_bvh_over_aabbs
 from .frontier import (
@@ -315,7 +315,7 @@ def cast_rays_tlas(rays: Rays, ft: FrontierTLAS,
 def _cast_tlas(rays: Rays, ft: FrontierTLAS, query_mask, any_hit):
     o, d = rays.origin, rays.direction
     inv = safe_inv_direction(d)
-    qm = _as_int32(query_mask)
+    qm = as_int32(query_mask)
     parts = []
     for s in range(0, max(rays.count, 1), RAY_CHUNK):
         e = min(s + RAY_CHUNK, rays.count)

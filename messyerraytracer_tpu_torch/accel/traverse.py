@@ -35,9 +35,9 @@ from ..core.types import (
     Rays,
     RayStats,
     Triangles,
+    as_int32,
     safe_inv_direction,
 )
-from ..kernels.cluster_v2 import _as_int32
 from .bvh import BVH, MAX_LEAF_SIZE, STACK_DEPTH
 
 CHUNK = 1 << 18      # rays per pass (bounds the stack's memory)
@@ -138,7 +138,7 @@ def cast_rays_bvh(rays: Rays, tris: Triangles, bvh: BVH,
     ``tris`` must already be in BVH slot order (``scene.build_scene``).
     Returns (hits, stats, occluded); ``occluded`` is only meaningful for
     ``any_hit=True``."""
-    qmask = _as_int32(query_mask)
+    qmask = as_int32(query_mask)
     outs = [_traverse(rays.origin[s:s + CHUNK], rays.direction[s:s + CHUNK],
                       rays.t_min[s:s + CHUNK], rays.t_max[s:s + CHUNK], bvh,
                       tris, qmask, any_hit)

@@ -152,6 +152,10 @@ def card_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# kernel B1's library, whose ``launches`` the progress lines read
+_B1 = cluster_v2.cuda_library
+
+
 def _say(msg: str) -> None:
     print(f"[bench] {msg}", file=sys.stderr, flush=True)
 
@@ -159,10 +163,6 @@ def _say(msg: str) -> None:
 def _fence(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _launches() -> int:
-    return cluster_v2.cluster_cast_cuda.launches
 
 
 def headline_camera() -> CameraParams:
@@ -304,7 +304,7 @@ def _brute(rays: Rays, tris):
 def _headline(device, extra: dict) -> tuple[float, SceneTLAS]:
     """The headline, its flat twin and the warm rebuilds; returns the
     headline's Mrays/s and its TLAS."""
-    b1 = _launches()
+    b1 = _B1.launches
     tlas, times = headline_tlas(device)
     world_tris = tlas._world_tris_np()
     rays = block_swizzled_frame_rays(*FRAME, headline_camera(), device)
@@ -360,13 +360,13 @@ def _headline(device, extra: dict) -> tuple[float, SceneTLAS]:
     tlas.build_instanced()
     _fence(device)
     extra["build_instanced_warm_s"] = round(time.time() - t0, 2)
-    _say(f"headline tier: B1 launches {_launches() - b1}")
+    _say(f"headline tier: B1 launches {_B1.launches - b1}")
     return mrays, tlas
 
 
 def _flat_99k(device, extra: dict):
     """The ~99K scene at 1024x768; returns the scene for the later tiers."""
-    b1 = _launches()
+    b1 = _B1.launches
     tris = tris_99k()
     t0 = time.time()
     scene = build_scene_from_tri_array(tris, device=device)
@@ -386,12 +386,12 @@ def _flat_99k(device, extra: dict):
     })
     _say(f"99K tier: {scene.num_tris} triangles built in {build_s} s, "
          f"{dt * 1e3} ms/frame, parity {ok}, pops/ray {pops / rays.count}; "
-         f"B1 launches {_launches() - b1}")
+         f"B1 launches {_B1.launches - b1}")
     return scene
 
 
 def _capacity_2m(device, extra: dict) -> None:
-    b1 = _launches()
+    b1 = _B1.launches
     tris = tris_2m()
     t0 = time.time()
     scene = build_scene_from_tri_array(tris, device=device)
@@ -417,17 +417,17 @@ def _capacity_2m(device, extra: dict) -> None:
         "tris_2m": int(scene.num_tris),
     })
     _say(f"2M tier: {dt * 1e3} ms/frame, parity {ok}, stack drops {drops}, "
-         f"brute {brute_s} s; B1 launches {_launches() - b1}")
+         f"brute {brute_s} s; B1 launches {_B1.launches - b1}")
 
 
 def _incoherent(device, extra: dict, scene) -> None:
-    b1 = _launches()
+    b1 = _B1.launches
     rays = incoherent_rays(device)
     disp = RayDispatcher(scene)
     dt, _ = timed(lambda: disp.cast_rays(rays), ITERS_INCOHERENT, device)
     extra["mrays_incoherent_512k"] = round(rays.count / dt / 1e6, 3)
     _say(f"incoherent: {rays.count} rays, {dt * 1e3} ms a batch; B1 "
-         f"launches {_launches() - b1}")
+         f"launches {_B1.launches - b1}")
 
 
 def pt_shading(device=DEFAULT_DEVICE) -> tuple:
@@ -442,7 +442,7 @@ def pt_shading(device=DEFAULT_DEVICE) -> tuple:
 
 
 def _path_traced(device, extra: dict, scene, tlas) -> None:
-    b1 = _launches()
+    b1 = _B1.launches
     shading = pt_shading(device)
     runs = {}
     for name, sc, cam in (("99k", scene, camera_99k()),
@@ -467,7 +467,7 @@ def _path_traced(device, extra: dict, scene, tlas) -> None:
         "pt_instanced_frame_ms_640x480_3b": round(dti * 1e3, 2),
         "pt_instanced_mrays": round(wavei / dti / 1e6, 2),
     })
-    _say(f"PT tier: B1 launches {_launches() - b1}")
+    _say(f"PT tier: B1 launches {_B1.launches - b1}")
 
 
 def run(device=None) -> dict:

@@ -36,6 +36,45 @@ ALL_LAYERS = -1
 # passes ``device=`` (``"cpu"`` for the plain versions).
 DEFAULT_DEVICE = torch.device("cuda")
 
+# --- conventions of the traversal kernels (B1, B4) and their plain versions
+KSTACK = 64             # traversal stack floor (scenes size it up from
+#                         their build-time worst case, kstack_for)
+KCAPS = (64, 128, 256)  # stack capacities the kernels are compiled for
+PLAIN_CHUNK = 65536     # rays per plain-version pass (bounds its memory)
+# f32 constants shared by the kernels (passed as arguments) and the plain
+# versions, so both compare against the same rounded values
+KERNEL_F32 = {
+    "det_eps": float(np.float32(MT_DET_EPS)),
+    "bary_lo": float(np.float32(-MT_BARY_EPS)),
+    "bary_hi": float(np.float32(1.0 + MT_BARY_EPS)),
+    "inv_eps": float(np.float32(INV_DIR_EPS)),
+    "big": float(np.float32(3.0e38)),   # "no hit yet" in the traversal
+    "t_miss": float(np.float32(T_MAX_DEFAULT)),
+}
+
+
+def as_int32(mask: int) -> int:
+    """A layer mask as a signed 32-bit value (0xFFFFFFFF -> -1)."""
+    return ((int(mask) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def kstack_for(stack_need: int) -> int:
+    """Traversal stack size for a cast: the scene's build-time worst-case
+    bound (``_wide_stack_need``) plus slack, floored at KSTACK (the JAX
+    package's sizing at one pop per step)."""
+    return max(KSTACK, int(stack_need) + 2)
+
+
+def kernel_stack(stack_need: int, kstack: int | None = None) -> tuple:
+    """(kstack, kcap) of a kernel launch: ``kstack`` (default
+    ``kstack_for(stack_need)``) and the least compiled capacity of KCAPS
+    that holds it; raises ``ValueError`` outside 1..KCAPS[-1]."""
+    kstack = kstack_for(stack_need) if kstack is None else int(kstack)
+    kcap = next((k for k in KCAPS if k >= kstack), None)
+    if kcap is None or kstack < 1:
+        raise ValueError(f"kstack {kstack} outside 1..{KCAPS[-1]}")
+    return kstack, kcap
+
 
 @dataclasses.dataclass
 class Rays:

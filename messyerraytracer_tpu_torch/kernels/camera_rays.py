@@ -20,8 +20,8 @@ import numpy as np
 import torch
 
 from ..core.types import T_MAX_DEFAULT, T_MIN_DEFAULT
-from ..native import CudaLibrary
-from ..utils.trace import count, span
+from ..native import CudaLibrary, check, cuda_device
+from ..utils.trace import count
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 cuda_library = CudaLibrary("camera_rays.cu", "libmrt_camera_rays.so", {
@@ -60,38 +60,18 @@ def camera_rays_cuda(width: int, height: int, ortho: bool, origin, basis,
     refused.  Arguments as ``kernel_args``; ``scale`` is (half_w,
     tan(fov / 2)) for a perspective camera, (half_w, half_h) for an
     orthographic one."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"camera_rays_cuda needs a CUDA device, got {dev}")
-    n = width * height
+    cuda_device(device, "camera_rays_cuda")
+    n, f32 = width * height, torch.float32
+    outs = (torch.empty((n, 3), dtype=f32, device=device),
+            torch.empty((n, 3), dtype=f32, device=device),
+            torch.empty((n,), dtype=f32, device=device),
+            torch.empty((n,), dtype=f32, device=device))
+    dev = outs[0].device
     for j in jitter:
-        if isinstance(j, torch.Tensor) and (
-                j.device.type != "cuda" or j.dtype != torch.float32
-                or tuple(j.shape) != (height, width)
-                or not j.is_contiguous()):
-            raise ValueError(f"per-pixel jitter must be a contiguous "
-                             f"({height}, {width}) float32 tensor on the "
-                             f"card, got {tuple(j.shape)} {j.dtype} on "
-                             f"{j.device}")
-    f32 = torch.float32
-    outs = (torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty((n, 3), dtype=f32, device=dev),
-            torch.empty((n,), dtype=f32, device=dev),
-            torch.empty((n,), dtype=f32, device=dev))
+        if isinstance(j, torch.Tensor):
+            check(j, "per-pixel jitter", f32, (height, width), dev)
     args = kernel_args(width, height, ortho, origin, basis, jitter, scale,
                        outs)
-    lib = cuda_library()
-    # the runtime launches on its current device: make it the outputs' one
-    with torch.cuda.device(outs[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        with span("camera.launch"):
-            err = lib.mrt_camera_rays(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"camera_rays kernel launch failed: CUDA error "
-                           f"{err}")
-    camera_rays_cuda.launches += 1
+    cuda_library.launch("mrt_camera_rays", args, dev, "camera.launch")
     count("camera.kernel_rays", n)
     return outs
-
-
-camera_rays_cuda.launches = 0

@@ -36,20 +36,21 @@ import torch
 
 from ..accel.bvh import _bvh_host
 from ..core.geometry import _cross
-from ..core.types import DEFAULT_DEVICE
+# KSTACK stays a name of this module, as in the JAX package's cluster.py
+from ..core.types import DEFAULT_DEVICE, KSTACK  # noqa: F401
+from ..native import check_tables
 from .wide import (
     ABSENT,
     NODE8_STRIDE,
     WIDE8_CAP,
     _child_boxes,
+    _put,
     _upper_node_tables,
 )
 
 TCAP_DEFAULT = 64       # triangles per cluster
 LOCAL_BITS = 13         # instanced leaf payload: gid = inst << 13 | local
 LOCAL_MASK = (1 << LOCAL_BITS) - 1   # => <= 8192 clusters/mesh
-KSTACK = 64             # traversal stack floor (scenes size it up from
-#                         their build-time worst case, _kstack_for)
 
 
 def cluster_tcap_for(num_tris: int) -> int:
@@ -140,6 +141,8 @@ class ClusterScene:
     croots      (C,) i32 — each cluster's root node in the binary BVH
     slot_map    (C, T) i32 — the triangle slot of each row (0 on pad rows)
     cvalid      (C, T) bool — the row holds a triangle
+
+    Construction checks the tables kernel B1 reads (``check_tables``).
     """
 
     node_box: torch.Tensor
@@ -160,17 +163,23 @@ class ClusterScene:
     slot_map: torch.Tensor | None = _refresh_table()
     cvalid: torch.Tensor | None = _refresh_table()
 
+    def __post_init__(self):
+        # B1 reads node_box, node_child and tri in 16-byte words
+        check_tables(type(self).__name__, self._kernel_tables(),
+                     ("node_box", "node_child", "tri"))
 
-def _put(tables: dict, device) -> dict:
-    return {k: torch.tensor(np.ascontiguousarray(v), device=device)
-            for k, v in tables.items()}
-
-
-def _kstack_for(stack_need: int) -> int:
-    """Traversal stack size for a cast: the scene's build-time worst-case
-    bound (``_wide_stack_need``) plus slack, floored at KSTACK (the JAX
-    package's sizing at one pop per step)."""
-    return max(KSTACK, int(stack_need) + 2)
+    def _kernel_tables(self) -> list:
+        """(name, tensor, dtype, shape) of each table the kernels read."""
+        f32, i32 = torch.float32, torch.int32
+        nw, c, t = self.node_child.shape[0], self.num_clusters, self.tcap
+        return [("node_box", self.node_box, f32, (nw, 8, 6)),
+                ("node_child", self.node_child, i32, (nw, 8)),
+                ("node_axis", self.node_axis, i32, (nw,)),
+                ("tri", self.tri, f32, (c, t, 16)),
+                ("tri_prim", self.tri_prim, i32, (c, t)),
+                ("tri_layers", self.tri_layers, i32, (c, t)),
+                ("cl_anchor", self.cl_anchor, f32, (c, 3)),
+                ("cl_count", self.cl_count, i32, (c,))]
 
 
 def _cluster_tables_np(amin, amax, lf, cnt, _np, tcap: int, collapsed=None):
@@ -368,7 +377,9 @@ def cast_rays_cluster(rays, cs: ClusterScene, query_mask: int = -1,
     Returns (hits, stats, occluded[, {"tri_tests"}]) as JAX v1 does.  The
     TPU schedule knobs (interpret, srows, qd, inner, gr) are accepted and
     ignored; ``probe`` timing modes raise."""
-    from .cluster_v2 import cast_rays_cluster_v2   # it imports this module
+    # lazy: cluster_v2 imports this module, and the JAX package's module
+    # layout keeps the v1 entry point here
+    from .cluster_v2 import cast_rays_cluster_v2
 
     del interpret, srows, qd, inner, gr
     out = cast_rays_cluster_v2(rays, cs, query_mask, any_hit, probe=probe,

@@ -34,7 +34,7 @@ import torch
 
 from ..accel.bvh import BVH, build_bvh, build_bvh_over_aabbs, refit_bvh
 from ..core.types import ALL_LAYERS, DEFAULT_DEVICE
-from ..native import CudaLibrary
+from ..native import CudaLibrary, check, cuda_device
 from ..utils.trace import count, span
 from .cluster import (
     LOCAL_BITS,
@@ -44,9 +44,8 @@ from .cluster import (
     _clusters_from_jax,
     _cluster_tables_np,
     _nodes_from_jax,
-    _put,
 )
-from .wide import _child_boxes, _upper_node_tables
+from .wide import _child_boxes, _put, _upper_node_tables
 
 MAX_INSTANCES = 1 << (23 - LOCAL_BITS)   # 1024
 ROW = 33    # an instance's host row: forward [R | t] 12, iinv 12, ifwd 9
@@ -82,6 +81,8 @@ class ClusterTLAS(ClusterScene):
                float32 rows still have different inverses)
     inst_rows  (Ni, ROW) float32 host array — per instance the forward
                rows, ``iinv`` and ``ifwd``, as uploaded
+
+    Construction also checks the refit kernel's tables.
     """
 
     inst_cbase: torch.Tensor
@@ -99,6 +100,30 @@ class ClusterTLAS(ClusterScene):
     pair_arrivals: torch.Tensor | None = None
     inst_mat: np.ndarray | None = None
     inst_rows: np.ndarray | None = None
+
+    def _kernel_tables(self) -> list:
+        f32, i32 = torch.float32, torch.int32
+        ni, bvh = self.n_inst, self.pair_bvh
+        out = super()._kernel_tables() + [
+            ("inst_cbase", self.inst_cbase, i32, (ni,)),
+            ("iprim", self.iprim, i32, (ni,)),
+            ("iinv", self.iinv, f32, (ni, 12)),
+            ("ifwd", self.ifwd, f32, (ni, 9))]
+        if bvh is None:
+            return out
+        p, m = bvh.num_tris, bvh.num_nodes
+        return out + [
+            ("pair_obj_min", self.pair_obj_min, f32, (p, 3)),
+            ("pair_obj_max", self.pair_obj_max, f32, (p, 3)),
+            ("pair_inst", self.pair_inst, i32, (p,)),
+            ("pair_bvh.tri_order", bvh.tri_order, i32, (p,)),
+            ("pair_bvh.left_first", bvh.left_first, i32, (m,)),
+            ("pair_bvh.count", bvh.count, i32, (m,)),
+            ("pair_parent", self.pair_parent, i32, (m,)),
+            ("pair_slot", self.pair_slot, i32, (m,)),
+            ("child_node", self.child_node, i32,
+             (self.node_child.shape[0], 8)),
+            ("pair_arrivals", self.pair_arrivals, i32, (m,))]
 
     @property
     def pair_bounds(self) -> tuple | None:
@@ -426,31 +451,15 @@ cuda_library = CudaLibrary("tlas_refit.cu", "libmrt_tlas_refit.so", {
 
 
 def _refit_kernel_args(ct: ClusterTLAS, rows: torch.Tensor) -> tuple:
-    """Check the refit kernel's inputs and allocate its outputs: (the C
-    entry's arguments up to the stream, (aabb_min, aabb_max, node_box,
-    iinv, ifwd))."""
-    from .cluster_v2 import _check               # it imports this module
-
-    dev = rows.device
-    if dev.type != "cuda":
-        raise ValueError(f"refit_pairs_cuda needs CUDA tensors, got {dev}")
+    """Check the refit kernel's per-call input, the (Ni, ROW) ``rows`` on
+    the tables' device (``ClusterTLAS`` checked its tables), and allocate
+    its outputs: (the C entry's arguments up to the stream, (aabb_min,
+    aabb_max, node_box, iinv, ifwd))."""
+    dev = cuda_device(rows.device, "refit_pairs_cuda")
     bvh = ct.pair_bvh
-    ni, p, m = ct.n_inst, bvh.num_tris, bvh.num_nodes
-    nw = ct.child_node.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    for name, t, dt, shape in (
-            ("rows", rows, f32, (ni, ROW)),
-            ("pair_obj_min", ct.pair_obj_min, f32, (p, 3)),
-            ("pair_obj_max", ct.pair_obj_max, f32, (p, 3)),
-            ("pair_inst", ct.pair_inst, i32, (p,)),
-            ("tri_order", bvh.tri_order, i32, (p,)),
-            ("left_first", bvh.left_first, i32, (m,)),
-            ("count", bvh.count, i32, (m,)),
-            ("pair_parent", ct.pair_parent, i32, (m,)),
-            ("pair_slot", ct.pair_slot, i32, (m,)),
-            ("child_node", ct.child_node, i32, (nw, 8)),
-            ("pair_arrivals", ct.pair_arrivals, i32, (m,))):
-        _check(t, name, dt, shape, dev)
+    ni, m, nw = ct.n_inst, bvh.num_nodes, ct.child_node.shape[0]
+    f32 = torch.float32
+    check(rows, "rows", f32, (ni, ROW), ct.node_box.device)
     outs = (torch.empty((m, 3), dtype=f32, device=dev),
             torch.empty((m, 3), dtype=f32, device=dev),
             torch.empty((nw, 8, 6), dtype=f32, device=dev),
@@ -472,21 +481,9 @@ def refit_pairs_cuda(ct: ClusterTLAS, rows: torch.Tensor) -> tuple:
     raises if the launch is refused.  The arrival counters it uses come
     back to 0 at the launch's end."""
     args, (amin, amax, node_box, iinv, ifwd) = _refit_kernel_args(ct, rows)
-    dev = rows.device
-    lib = cuda_library()
-    # the runtime launches on its current device: make it the tables' one
-    with torch.cuda.device(dev), span("refit.kernel"):
-        err = lib.mrt_tlas_refit(
-            *args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tlas_refit kernel launch failed: CUDA error "
-                           f"{err}")
-    refit_pairs_cuda.launches += 1
+    cuda_library.launch("mrt_tlas_refit", args, rows.device, "refit.kernel")
     return (dataclasses.replace(ct.pair_bvh, aabb_min=amin, aabb_max=amax,
                                 host=None), node_box, iinv, ifwd)
-
-
-refit_pairs_cuda.launches = 0
 
 
 def cluster_tlas_from_jax(nodes, ablocks, islab, iprim, iinv, ifwd, *,
@@ -523,7 +520,9 @@ def cast_rays_cluster_tlas(rays, ct: ClusterTLAS, query_mask: int = -1,
     ``cluster.cast_rays_cluster``).  Returns (hits, stats, occluded,
     instance_id); the TPU knobs (interpret, srows, qd) are accepted and
     ignored."""
-    from .cluster_v2 import cast_rays_cluster_tlas_v2   # it imports this
+    # lazy: cluster_v2 imports this module, and the JAX package's module
+    # layout keeps the v1 entry point here
+    from .cluster_v2 import cast_rays_cluster_tlas_v2
 
     del interpret, srows, qd
     return cast_rays_cluster_tlas_v2(rays, ct, query_mask, any_hit)

@@ -44,44 +44,25 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..core.types import (
-    INV_DIR_EPS,
-    MT_BARY_EPS,
-    MT_DET_EPS,
+    KERNEL_F32 as _F32,
     NO_HIT,
+    PLAIN_CHUNK,
     T_MAX_DEFAULT,
     Hits,
     Rays,
     RayStats,
+    as_int32,
+    kernel_stack,
+    kstack_for,
     safe_inv_direction,
 )
-from ..native import CudaLibrary
+from ..native import CudaLibrary, check, check_rays, cuda_device
 from ..utils.trace import span
-from .cluster import LOCAL_BITS, LOCAL_MASK, ClusterScene, _kstack_for
+from .cluster import LOCAL_BITS, LOCAL_MASK, ClusterScene
 from .cluster_tlas import ClusterTLAS
-
-_BIG = 3.0e38           # "no hit yet" distance inside the traversal
-KCAPS = (64, 128, 256)  # stack capacities the kernel is compiled for
-PLAIN_CHUNK = 65536     # rays per plain-version pass (bounds its memory)
-
-# f32 constants shared by the kernel (passed as arguments) and the plain
-# version, so both compare against the same rounded values
-_F32 = {
-    "det_eps": float(np.float32(MT_DET_EPS)),
-    "bary_lo": float(np.float32(-MT_BARY_EPS)),
-    "bary_hi": float(np.float32(1.0 + MT_BARY_EPS)),
-    "inv_eps": float(np.float32(INV_DIR_EPS)),
-    "big": float(np.float32(_BIG)),
-    "t_miss": float(np.float32(T_MAX_DEFAULT)),
-}
-
-
-def _as_int32(mask: int) -> int:
-    """A layer mask as a signed 32-bit value (0xFFFFFFFF -> -1)."""
-    return ((int(mask) + (1 << 31)) % (1 << 32)) - (1 << 31)
 
 
 # ---------------------------------------------------------------------------
@@ -275,9 +256,9 @@ def cluster_cast_plain(origin, direction, t_min, t_max, cs: ClusterScene,
     layers, tri_tests, instance, node_visits], counters (2,) int64
     [pops, stack_drops]) — the kernel's outputs.  Rays are processed
     ``chunk`` at a time to bound memory."""
-    kstack = _kstack_for(cs.stack_need) if kstack is None else int(kstack)
+    kstack = kstack_for(cs.stack_need) if kstack is None else int(kstack)
     inst_mode = isinstance(cs, ClusterTLAS)
-    qmask = _as_int32(query_mask)
+    qmask = as_int32(query_mask)
     outs = [_plain_pass(origin[s:s + chunk], direction[s:s + chunk],
                         t_min[s:s + chunk], t_max[s:s + chunk], cs,
                         inst_mode, qmask, any_hit, kstack)
@@ -309,59 +290,17 @@ cuda_library = CudaLibrary("cluster_cast.cu", "libmrt_cluster_cast.so", {
 #                                                 warp_stats, stream
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _kernel_args(origin, direction, t_min, t_max, cs: ClusterScene,
-                query_mask: int = -1, any_hit: bool = False,
-                kstack: int | None = None) -> list:
-    """Check the inputs of kernel B1 and return the leading arguments of
-    its C entry, up to the outputs (rays, tables, flags, constants)."""
-    kstack = _kstack_for(cs.stack_need) if kstack is None else int(kstack)
-    kcap = next((k for k in KCAPS if k >= kstack), None)
-    if kcap is None or kstack < 1:
-        raise ValueError(f"kstack {kstack} outside 1..{KCAPS[-1]}")
-    dev = origin.device
-    if dev.type != "cuda":
-        raise ValueError(f"cluster_cast_cuda needs CUDA tensors, got {dev}")
-    n = origin.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    nw, c, tcap = cs.node_child.shape[0], cs.num_clusters, cs.tcap
-    for name, t, dt, shape in (
-            ("origin", origin, f32, (n, 3)),
-            ("direction", direction, f32, (n, 3)),
-            ("t_min", t_min, f32, (n,)), ("t_max", t_max, f32, (n,)),
-            ("node_box", cs.node_box, f32, (nw, 8, 6)),
-            ("node_child", cs.node_child, i32, (nw, 8)),
-            ("node_axis", cs.node_axis, i32, (nw,)),
-            ("tri", cs.tri, f32, (c, tcap, 16)),
-            ("tri_prim", cs.tri_prim, i32, (c, tcap)),
-            ("tri_layers", cs.tri_layers, i32, (c, tcap)),
-            ("cl_anchor", cs.cl_anchor, f32, (c, 3)),
-            ("cl_count", cs.cl_count, i32, (c,))):
-        _check(t, name, dt, shape, dev)
-    for name, t in (("node_box", cs.node_box), ("node_child", cs.node_child),
-                    ("tri", cs.tri)):
-        if t.data_ptr() % 16:               # the kernel reads 16-byte words
-            raise ValueError(f"{name} is not 16-byte aligned")
+                 query_mask: int = -1, any_hit: bool = False,
+                 kstack: int | None = None) -> list:
+    """Check the per-call inputs of kernel B1 (rays, ``kstack``; ``cs``
+    checked its tables) and return the leading arguments of its C entry,
+    up to the outputs (rays, tables, flags, constants)."""
+    kstack, kcap = kernel_stack(cs.stack_need, kstack)
+    cuda_device(origin.device, "cluster_cast_cuda")
+    n = check_rays(origin, direction, t_min, t_max, cs.node_box.device)
     inst = [0, 0, 0, 0]
     if isinstance(cs, ClusterTLAS):
-        ni = cs.n_inst
-        for name, t, dt, shape in (
-                ("inst_cbase", cs.inst_cbase, i32, (ni,)),
-                ("iprim", cs.iprim, i32, (ni,)),
-                ("iinv", cs.iinv, f32, (ni, 12)),
-                ("ifwd", cs.ifwd, f32, (ni, 9))):
-            _check(t, name, dt, shape, dev)
         inst = [cs.inst_cbase.data_ptr(), cs.iprim.data_ptr(),
                 cs.iinv.data_ptr(), cs.ifwd.data_ptr()]
     return [origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
@@ -369,8 +308,8 @@ def _kernel_args(origin, direction, t_min, t_max, cs: ClusterScene,
             cs.node_box.data_ptr(), cs.node_child.data_ptr(),
             cs.node_axis.data_ptr(), cs.tri.data_ptr(),
             cs.tri_prim.data_ptr(), cs.tri_layers.data_ptr(),
-            cs.cl_anchor.data_ptr(), cs.cl_count.data_ptr(), tcap, *inst,
-            _as_int32(query_mask), int(bool(any_hit)), kstack, kcap,
+            cs.cl_anchor.data_ptr(), cs.cl_count.data_ptr(), cs.tcap, *inst,
+            as_int32(query_mask), int(bool(any_hit)), kstack, kcap,
             *(_F32[k] for k in ("det_eps", "bary_lo", "bary_hi", "inv_eps",
                                  "big", "t_miss"))]
 
@@ -388,29 +327,20 @@ def cluster_cast_cuda(origin, direction, t_min, t_max, cs: ClusterScene,
     that wanted a cluster in them, and the (lane, cluster) pairs tested
     warp-cooperatively; None launches the kernel that does not count."""
     args = _kernel_args(origin, direction, t_min, t_max, cs, query_mask,
-                       any_hit, kstack)
+                        any_hit, kstack)
     dev, n = origin.device, origin.shape[0]
     if warp_stats is not None:
-        _check(warp_stats, "warp_stats", torch.int64, (3,), dev)
+        check(warp_stats, "warp_stats", torch.int64, (3,), dev)
     fout = torch.empty((6, n), dtype=torch.float32, device=dev)
     iout = torch.empty((5, n), dtype=torch.int32, device=dev)
     counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if n == 0:
         return fout, iout, counters
-    # the runtime launches on its current device: make it the rays' one
-    with torch.cuda.device(dev), span("b1.launch"):
-        err = cuda_library().mrt_cluster_cast(
-            *args, fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
-            None if warp_stats is None else warp_stats.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cluster_cast kernel launch failed: CUDA error "
-                           f"{err}")
-    cluster_cast_cuda.launches += 1
+    cuda_library.launch("mrt_cluster_cast", args + [
+        fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
+        None if warp_stats is None else warp_stats.data_ptr()],
+        dev, "b1.launch")
     return fout, iout, counters
-
-
-cluster_cast_cuda.launches = 0
 
 
 def cluster_cast(rays: Rays, cs: ClusterScene, query_mask: int = -1,

@@ -50,18 +50,21 @@ import ctypes
 
 import torch
 
-from ..core.types import NO_HIT, Hits, Rays, RayStats, safe_inv_direction
-from ..native import CudaLibrary
-from ..utils.trace import count, span
-from .cluster import _kstack_for
-from .cluster_v2 import (
-    _F32,
-    KCAPS,
+from ..core.types import (
+    KERNEL_F32 as _F32,
+    NO_HIT,
     PLAIN_CHUNK,
-    _as_int32,
-    _check,
+    Hits,
+    Rays,
+    RayStats,
+    as_int32,
+    kernel_stack,
+    kstack_for,
+    safe_inv_direction,
 )
-from .wide import LEAF_CAP, WIDE8_CAP, WideScene
+from ..native import CudaLibrary, check, check_rays, cuda_device
+from ..utils.trace import count, span
+from .wide import LEAF_CAP, WideScene
 
 COLUMNAR = (None, True, False, "leaf", "q")   # the JAX layout choices
 
@@ -214,9 +217,9 @@ def wide_cast_plain(origin, direction, t_min, t_max, ws: WideScene,
     ``quantized`` traverses the decoded 8-bit boxes
     (``WideScene.quantized_boxes``, the values the kernel decodes).  Rays
     are processed ``chunk`` at a time to bound memory."""
-    kstack = _kstack_for(ws.stack_need) if kstack is None else int(kstack)
+    kstack = kstack_for(ws.stack_need) if kstack is None else int(kstack)
     box = ws.quantized_boxes() if quantized else ws.node_box
-    qmask = _as_int32(query_mask)
+    qmask = as_int32(query_mask)
     outs = [_plain_pass(origin[s:s + chunk], direction[s:s + chunk],
                         t_min[s:s + chunk], t_max[s:s + chunk], ws, box,
                         qmask, any_hit, kstack)
@@ -235,7 +238,6 @@ def wide_cast_plain(origin, direction, t_min, t_max, ws: WideScene,
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_RAY_FIELDS = ("origin", "direction", "t_min", "t_max")   # scalar loads
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 cuda_library = CudaLibrary("wide_cast.cu", "libmrt_wide_cast.so", {
     "mrt_wide_cast": (
@@ -263,71 +265,32 @@ def wide_cast_cuda(origin, direction, t_min, t_max, ws: WideScene,
     wanting lanes, lanes whose leaf was tested cooperatively] to (a build
     of the kernel that counts; the lane occupancy of a phase is lanes /
     (32 x passes))."""
-    kstack = _kstack_for(ws.stack_need) if kstack is None else int(kstack)
-    kcap = next((k for k in KCAPS if k >= kstack), None)
-    if kcap is None or kstack < 1:
-        raise ValueError(f"kstack {kstack} outside 1..{KCAPS[-1]}")
-    dev = origin.device
-    if dev.type != "cuda":
-        raise ValueError(f"wide_cast_cuda needs CUDA tensors, got {dev}")
-    if quantized and ws.branching != WIDE8_CAP:
-        raise ValueError("quantized nodes need the 8-wide layout")
-    n = origin.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    nw, kw, nl = ws.node_child.shape[0], ws.branching, ws.num_leaves
-    tables = [("origin", origin, f32, (n, 3)),
-              ("direction", direction, f32, (n, 3)),
-              ("t_min", t_min, f32, (n,)), ("t_max", t_max, f32, (n,)),
-              ("node_box", ws.node_box, f32, (nw, kw, 6)),
-              ("node_child", ws.node_child, i32, (nw, kw)),
-              ("node_axis", ws.node_axis, i32, (nw,)),
-              ("leaf_tri", ws.leaf_tri, f32, (nl, LEAF_CAP, 9)),
-              ("leaf_count", ws.leaf_count, i32, (nl,)),
-              ("slot_layers", ws.slot_layers, i32, (nl * LEAF_CAP,))]
-    qptr = [0, 0, 0, 0]
-    if quantized:
-        q = ws.quantized()
-        for name, t, dt, shape in zip(
-                ("q_anchor", "q_scale", "q_lo", "q_hi"), q,
-                (f32, f32, i32, i32), ((nw, 3), (nw, 3), (nw, 8), (nw, 8))):
-            tables.append((name, t, dt, shape))
-        qptr = [t.data_ptr() for t in q]
-    for name, t, dt, shape in tables:
-        _check(t, name, dt, shape, dev)
-        if name not in _RAY_FIELDS and t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned (the kernel "
-                             f"reads its rows in 16-byte loads)")
+    kstack, kcap = kernel_stack(ws.stack_need, kstack)
+    dev = cuda_device(origin.device, "wide_cast_cuda")
+    n = check_rays(origin, direction, t_min, t_max, ws.node_box.device)
+    qptr = ([t.data_ptr() for t in ws.quantized()] if quantized
+            else [0, 0, 0, 0])
     if warp_stats is not None:
-        _check(warp_stats, "warp_stats", torch.int64, (5,), dev)
-    fout = torch.empty((3, n), dtype=f32, device=dev)
-    iout = torch.empty((2, n), dtype=i32, device=dev)
+        check(warp_stats, "warp_stats", torch.int64, (5,), dev)
+    fout = torch.empty((3, n), dtype=torch.float32, device=dev)
+    iout = torch.empty((2, n), dtype=torch.int32, device=dev)
     counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if n == 0:
         return fout, iout, counters
-    lib = cuda_library()
-    # the runtime launches on its current device: make it the rays' one
-    with torch.cuda.device(dev), span("b4.launch"):
-        err = lib.mrt_wide_cast(
-            origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-            t_max.data_ptr(), n,
-            ws.node_box.data_ptr(), ws.node_child.data_ptr(),
-            ws.node_axis.data_ptr(), *qptr,
-            ws.leaf_tri.data_ptr(), ws.leaf_count.data_ptr(),
-            ws.slot_layers.data_ptr(),
-            kw, int(bool(quantized)), _as_int32(query_mask),
-            int(bool(any_hit)), kstack, kcap,
-            *(_F32[k] for k in ("det_eps", "inv_eps", "big", "t_miss")),
-            fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
-            None if warp_stats is None else warp_stats.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wide_cast kernel launch failed: CUDA error "
-                           f"{err}")
-    wide_cast_cuda.launches += 1
+    cuda_library.launch("mrt_wide_cast", [
+        origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
+        t_max.data_ptr(), n,
+        ws.node_box.data_ptr(), ws.node_child.data_ptr(),
+        ws.node_axis.data_ptr(), *qptr,
+        ws.leaf_tri.data_ptr(), ws.leaf_count.data_ptr(),
+        ws.slot_layers.data_ptr(),
+        ws.branching, int(bool(quantized)), as_int32(query_mask),
+        int(bool(any_hit)), kstack, kcap,
+        *(_F32[k] for k in ("det_eps", "inv_eps", "big", "t_miss")),
+        fout.data_ptr(), iout.data_ptr(), counters.data_ptr(),
+        None if warp_stats is None else warp_stats.data_ptr()],
+        dev, "b4.launch")
     return fout, iout, counters
-
-
-wide_cast_cuda.launches = 0
 
 
 def wide_cast(rays: Rays, ws: WideScene, query_mask: int = -1,
@@ -391,8 +354,6 @@ def cast_rays_wide(rays: Rays, scene: WideScene, query_mask: int = -1,
     if columnar not in COLUMNAR:
         raise ValueError(f"columnar must be one of {COLUMNAR}")
     quantized = columnar == "q"
-    if quantized and scene.branching != WIDE8_CAP:
-        raise ValueError("columnar='q' needs the 8-wide layout")
     with span("cast"):
         fout, iout, counters = wide_cast(rays, scene, query_mask, any_hit,
                                          quantized)

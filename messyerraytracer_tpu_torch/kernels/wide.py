@@ -39,6 +39,7 @@ import torch
 
 from ..accel.bvh import _bvh_host
 from ..core.types import DEFAULT_DEVICE
+from ..native import check_tables
 from ..utils.trace import span
 
 NODE_STRIDE = 16      # JAX lanes per binary node (8 per 128-lane row)
@@ -200,7 +201,8 @@ class WideScene:
     ``stack_need`` is the build-time worst-case traversal stack depth.
     ``child_node`` (W, K) i32 is the binary BVH node each child slot came
     from, -1 if absent (the refresh's gather table; None for tables
-    converted from the JAX package)."""
+    converted from the JAX package).  Construction and ``quantized``
+    check the tables kernel B4 reads (``check_tables``)."""
 
     node_box: torch.Tensor
     node_child: torch.Tensor
@@ -219,6 +221,25 @@ class WideScene:
     stream_nodes: bool = False
     child_node: torch.Tensor | None = None
     _q: tuple | None = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        self._check(self._q)
+
+    def _check(self, q: tuple | None) -> None:
+        f32, i32 = torch.float32, torch.int32
+        nw, kw, nl = self.node_child.shape[0], self.branching, self.num_leaves
+        tables = [("node_box", self.node_box, f32, (nw, kw, 6)),
+                  ("node_child", self.node_child, i32, (nw, kw)),
+                  ("node_axis", self.node_axis, i32, (nw,)),
+                  ("leaf_tri", self.leaf_tri, f32, (nl, LEAF_CAP, 9)),
+                  ("leaf_count", self.leaf_count, i32, (nl,)),
+                  ("slot_layers", self.slot_layers, i32, (nl * LEAF_CAP,))]
+        if q is not None:
+            tables += zip(("q_anchor", "q_scale", "q_lo", "q_hi"), q,
+                          (f32, f32, i32, i32), ((nw, 3), (nw, 3), (nw, 8),
+                                                 (nw, 8)))
+        # B4 reads every table in 16-byte loads
+        check_tables("WideScene", tables, [name for name, *_ in tables])
 
     @property
     def num_leaves(self) -> int:
@@ -261,9 +282,10 @@ class WideScene:
                 return torch.where(present, p,
                                    torch.full_like(p, absent_value))
 
-            self._q = (anchor.contiguous(), scale.contiguous(),
-                       pack(qlo, 0xFFFFFF).contiguous(),
-                       pack(qhi, 0).contiguous())
+            q = (anchor.contiguous(), scale.contiguous(),
+                 pack(qlo, 0xFFFFFF).contiguous(), pack(qhi, 0).contiguous())
+            self._check(q)
+            self._q = q
         return self._q
 
     def quantized_boxes(self) -> torch.Tensor:
@@ -313,10 +335,13 @@ def _host_inputs(bvh, tris, _np):
     return host, tuple(np.asarray(a) for a in _np)
 
 
+def _put(tables: dict, device) -> dict:
+    return {k: torch.tensor(np.ascontiguousarray(v), device=device)
+            for k, v in tables.items()}
+
+
 def _finish(tables: dict, device, **meta) -> WideScene:
-    tensors = {k: torch.tensor(np.ascontiguousarray(v), device=device)
-               for k, v in tables.items()}
-    return WideScene(**tensors, **meta,
+    return WideScene(**_put(tables, device), **meta,
                      stack_need=_wide_stack_need(tables["node_child"]))
 
 

@@ -9,7 +9,8 @@ Two kinds of shared library are built into ``BUILD_DIR`` (git-ignored):
     (accel/bvh.py) — host build code, not a device path;
   * the CUDA kernels under ``kernels/csrc/``, compiled with nvcc for
     ``sm_90a`` into a library with a plain C interface, one a kernel,
-    each built at first use and bound by a ``CudaLibrary``.
+    each built at first use and bound by a ``CudaLibrary``, whose
+    ``launch`` is the one launch seam of the port's kernels.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import tempfile
 import threading
 
 import numpy as np
+import torch
+
+from ..utils.trace import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -108,12 +112,14 @@ class CudaLibrary:
     with ``nvcc() + NVCC_FLAGS`` into ``BUILD_DIR/<name>`` at first use,
     loaded through ctypes once, its C ``entries`` ({function: argtypes})
     declared to return an int, the launch's CUDA error code.  Calling it
-    returns the loaded library; ``lib`` is None until then."""
+    returns the loaded library; ``lib`` is None until then.  ``launches``
+    counts the launches ``launch`` made."""
 
     def __init__(self, source: str, name: str, entries: dict):
         self.source = os.path.join(KERNEL_SRC, source)
         self.name, self.entries = name, entries
         self.lib = None
+        self.launches = 0
         self._lock = threading.Lock()
 
     def __call__(self):
@@ -132,6 +138,69 @@ class CudaLibrary:
             f.restype = ctypes.c_int
             f.argtypes = argtypes
         return lib
+
+    def launch(self, entry: str, args: list, device, span_name: str):
+        """Call the C entry ``entry`` on ``args`` and the current stream of
+        the CUDA ``device``, made the current device, directly inside the
+        profiler span ``span_name`` (which a trace links the kernel to);
+        count the launch, or raise ``RuntimeError`` if it is refused."""
+        fn = getattr(self(), entry)
+        with torch.cuda.device(device), span(span_name):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+        with self._lock:
+            self.launches += 1
+
+
+def cuda_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``; raises ``ValueError`` unless it
+    is a CUDA one (a kernel's launcher has no fallback)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"{who} needs CUDA tensors, got {dev}")
+    return dev
+
+
+def check(t, name: str, dtype, shape, device=None,
+          aligned: bool = False) -> None:
+    """Raise ``ValueError`` naming ``name`` unless ``t`` is a contiguous
+    tensor of ``dtype`` and ``shape``, on ``device`` if given, and, if
+    ``aligned`` and on a card, 16-byte aligned (for 16-byte loads)."""
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+    if aligned and t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def check_tables(owner: str, tables, aligned=()) -> None:
+    """``check`` each (name, tensor, dtype, shape) of ``tables``, those
+    named in ``aligned`` for 16-byte alignment, and that all share one
+    device; errors name the table ``owner.name``."""
+    first, dev = tables[0][0], tables[0][1].device
+    for name, t, dtype, shape in tables:
+        check(t, f"{owner}.{name}", dtype, shape, aligned=name in aligned)
+        if t.device != dev:
+            raise ValueError(f"{owner}.{name} is on {t.device}, "
+                             f"{owner}.{first} on {dev}")
+
+
+def check_rays(origin, direction, t_min, t_max, device) -> int:
+    """``check`` a cast's rays, (N, 3) origins and directions and (N,)
+    t ranges in float32, on ``device`` (the tables'); returns N."""
+    n = origin.shape[0]
+    for name, t, shape in (("origin", origin, (n, 3)),
+                           ("direction", direction, (n, 3)),
+                           ("t_min", t_min, (n,)), ("t_max", t_max, (n,))):
+        check(t, name, torch.float32, shape, device)
+    return n
 
 
 _F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")

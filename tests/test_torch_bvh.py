@@ -15,6 +15,7 @@ from messyerraytracer_tpu.kernels import wide as jwide  # noqa: E402
 
 from messyerraytracer_tpu_torch import native as pnative  # noqa: E402
 from messyerraytracer_tpu_torch.accel import bvh as pbvh  # noqa: E402
+from messyerraytracer_tpu_torch.core import types as ptypes  # noqa: E402
 from messyerraytracer_tpu_torch.kernels import cluster as pcluster  # noqa
 from messyerraytracer_tpu_torch.kernels import wide as pwide  # noqa: E402
 from torch_port_helpers import (  # noqa: E402
@@ -111,7 +112,7 @@ def test_cluster_helpers_match():
     assert (pwide.NODE8_STRIDE, pwide.WIDE8_CAP) == (jwide.NODE8_STRIDE,
                                                      jwide.WIDE8_CAP)
     for n in (0, 30, 62, 63, 200):
-        assert pcluster._kstack_for(n) == jcluster._kstack_for(n)
+        assert ptypes.kstack_for(n) == jcluster._kstack_for(n)
     for n in (10, 300_000, 300_001, 10**6):
         assert pcluster.cluster_tcap_for(n) == jcluster.cluster_tcap_for(n)
 

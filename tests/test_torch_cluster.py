@@ -178,10 +178,10 @@ def test_wrapper_routes_by_device(small):
     args = (rays.origin, rays.direction, rays.t_min, rays.t_max, pcs)
     for a, b in zip(cluster_cast(rays, pcs), cluster_cast_plain(*args)):
         assert torch.equal(a, b)
-    before = cluster_cast_cuda.launches
+    before = cluster_v2.cuda_library.launches
     with pytest.raises(ValueError, match="CUDA"):
         cluster_cast_cuda(*args)             # CPU tensors: no fallback
-    assert cluster_cast_cuda.launches == before
+    assert cluster_v2.cuda_library.launches == before
     assert cluster_v2.cuda_library.lib is None   # nvcc was never needed
 
 

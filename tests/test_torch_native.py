@@ -104,20 +104,18 @@ def test_a_changed_build_command_rebuilds(tmp_path, monkeypatch):
     assert runs.read_text() == "xx"
 
 
-def test_a_kernel_library_is_built_once_and_declared(tmp_path, monkeypatch):
-    """``CudaLibrary`` builds its source at first call, with ``nvcc()`` and
-    ``NVCC_FLAGS``, once however many threads ask, loads it once and
-    declares each entry to return an int."""
+def stand_in_library(tmp_path, monkeypatch):
+    """A ``CudaLibrary`` of ``int mrt_add(int a, int b)``, built by a
+    stand-in nvcc that checks it got ``NVCC_FLAGS``, builds the source as
+    C with the host's compiler and counts its runs in the returned
+    file."""
     import ctypes
     import sys
-    import threading
 
     monkeypatch.setattr(pnative, "BUILD_DIR", str(tmp_path / "build"))
     src = tmp_path / "add.cu"
     src.write_text("int mrt_add(int a, int b) { return a + b; }\n")
     runs = tmp_path / "runs"
-    # a stand-in nvcc: checks it got NVCC_FLAGS, builds the source as C
-    # with the host's compiler and counts its runs
     nvcc = tmp_path / "nvcc"
     nvcc.write_text(
         f"#!{sys.executable}\n"
@@ -131,6 +129,17 @@ def test_a_kernel_library_is_built_once_and_declared(tmp_path, monkeypatch):
     monkeypatch.setattr(pnative, "nvcc", lambda: str(nvcc))
     lib = pnative.CudaLibrary(str(src), "libadd.so", {
         "mrt_add": [ctypes.c_int, ctypes.c_int]})
+    return lib, src, runs
+
+
+def test_a_kernel_library_is_built_once_and_declared(tmp_path, monkeypatch):
+    """``CudaLibrary`` builds its source at first call, with ``nvcc()`` and
+    ``NVCC_FLAGS``, once however many threads ask, loads it once and
+    declares each entry to return an int."""
+    import ctypes
+    import threading
+
+    lib, src, runs = stand_in_library(tmp_path, monkeypatch)
     assert lib.lib is None and lib.source == str(src)
     got = []
     threads = [threading.Thread(target=lambda: got.append(lib()))
@@ -145,6 +154,85 @@ def test_a_kernel_library_is_built_once_and_declared(tmp_path, monkeypatch):
     assert lib().mrt_add.restype is ctypes.c_int
     assert lib.load(lib.lib._name).mrt_add.argtypes == [ctypes.c_int] * 2
     assert runs.read_text() == "x"
+
+
+def test_a_launch_counts_only_what_the_entry_accepted(tmp_path,
+                                                      monkeypatch):
+    """``CudaLibrary.launch`` calls the entry inside the device guard with
+    the current stream appended: a return code of 0 counts one launch; a
+    non-zero code raises ``RuntimeError`` naming the entry and the code
+    and counts none.  (The stand-in entry returns its argument plus the
+    stand-in stream, 40.)"""
+    import contextlib
+    import types
+
+    lib, _, _ = stand_in_library(tmp_path, monkeypatch)
+    guarded = []
+
+    @contextlib.contextmanager
+    def guard(device):
+        guarded.append(device)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=40))
+    assert lib.launches == 0
+    lib.launch("mrt_add", [-40], "cuda:0", "test.launch")
+    assert lib.launches == 1 and guarded == ["cuda:0"]
+    with pytest.raises(RuntimeError, match="mrt_add .*CUDA error 2$"):
+        lib.launch("mrt_add", [-38], "cuda:0", "test.launch")
+    assert lib.launches == 1 and guarded == ["cuda:0"] * 2
+
+
+@pytest.fixture(scope="module")
+def table_classes():
+    """One small CPU instance of each table class kernels read."""
+    from messyerraytracer_tpu_torch.kernels.cluster_tlas import (
+        build_cluster_tlas)
+
+    tris = small_tris()
+    moved = np.eye(4)
+    moved[:3, 3] = (20.0, 0.0, 0.0)
+    return {
+        "ClusterScene": pscene.build_scene_from_tri_array(
+            tris, device="cpu").cluster,
+        "ClusterTLAS": build_cluster_tlas(
+            [tris], [(0, np.eye(4)), (0, moved)], device="cpu"),
+        "WideScene": pscene.build_scene_from_tri_array(
+            tris, backend="pallas", device="cpu").wide,
+    }
+
+
+_FAULTS = {
+    "dtype": lambda t: t.to(torch.float64 if t.is_floating_point()
+                            else torch.int64),
+    "shape": lambda t: t[:-1],
+    "strides": lambda t: torch.stack([t, t], dim=-1)[..., 0],
+    "device": lambda t: t.to("meta"),
+}
+
+
+@pytest.mark.parametrize("fault", list(_FAULTS))
+@pytest.mark.parametrize("owner,table", [
+    ("ClusterScene", "node_box"), ("ClusterScene", "tri_layers"),
+    ("ClusterTLAS", "iinv"), ("ClusterTLAS", "pair_slot"),
+    ("WideScene", "leaf_tri"), ("WideScene", "slot_layers")])
+def test_a_malformed_table_is_refused_at_construction(table_classes, owner,
+                                                      table, fault):
+    """Each table class checks the tables its kernels read when it is
+    made, whichever way: a table of another dtype or shape, a
+    non-contiguous one or one on another device raises ``ValueError``
+    naming it, and the well-formed copy passes."""
+    import dataclasses
+    import re
+
+    tables = table_classes[owner]
+    good = getattr(tables, table)
+    assert dataclasses.replace(tables, **{table: good.clone()})
+    with pytest.raises(ValueError, match=re.escape(f"{owner}.{table} ")):
+        dataclasses.replace(tables, **{table: _FAULTS[fault](good)})
 
 
 def c_entry_types(source: str, entry: str) -> list:

@@ -594,9 +594,9 @@ def test_refit_kernel_wrapper_refuses_cpu(instanced):
     kernel's wrapper refuses CPU tensors, and ``set_transforms`` refuses a
     transform list of the wrong length."""
     p, _, before = instanced
-    launches = pctlas.refit_pairs_cuda.launches
+    launches = pctlas.cuda_library.launches
     pctlas.set_transforms(before, [i.transform for i in p.instances])
-    assert pctlas.refit_pairs_cuda.launches == launches
+    assert pctlas.cuda_library.launches == launches
     rows = torch.as_tensor(before.inst_rows)
     with pytest.raises(ValueError, match="CUDA"):
         pctlas.refit_pairs_cuda(before, rows)
@@ -775,13 +775,13 @@ def test_refits_on_card_equal_cpu():
         for k, tf in step.items():
             tfs[k] = rest[k] if isinstance(tf, str) else tf
         old = {k: v.clone() for k, v in _tables(ct).items()}
-        launches = pctlas.refit_pairs_cuda.launches
+        launches = pctlas.cuda_library.launches
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             new = pctlas.set_transforms(ct, list(tfs))
         names = [e.name for e in prof.events()]
         assert names.count("refit.kernel") == 1
         assert not {"bvh.level", "refit.corner"} & set(names)
-        assert pctlas.refit_pairs_cuda.launches == launches + 1
+        assert pctlas.cuda_library.launches == launches + 1
         bvh, node_box, iinv, ifwd = pctlas._refit_pairs_plain(
             ct, torch.as_tensor(new.inst_rows, device="cuda"))
         plain = {"aabb_min": bvh.aabb_min, "aabb_max": bvh.aabb_max,

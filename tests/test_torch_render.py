@@ -487,14 +487,13 @@ def test_camera_rays_on_the_card_equal_cpu():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from messyerraytracer_tpu_torch.kernels.camera_rays import (
-        camera_rays_cuda)
+    from messyerraytracer_tpu_torch.kernels.camera_rays import cuda_library
     from messyerraytracer_tpu_torch.utils import trace
 
     for cam, w, h, jit in camera_cases():
-        launches = camera_rays_cuda.launches
+        launches = cuda_library.launches
         a = generate_rays(cam, w, h, jitter=jit, device="cuda")
-        assert camera_rays_cuda.launches == launches + 1
+        assert cuda_library.launches == launches + 1
         b = generate_rays(cam, w, h, jitter=jit, device="cpu")
         assert a.origin.device.type == "cuda"
         for f in ("origin", "direction", "t_min", "t_max"):
@@ -583,12 +582,12 @@ def test_cpu_camera_rays_never_build_or_load_the_kernel(monkeypatch):
         raise AssertionError("the camera library was asked for")
 
     loader = kcam.cuda_library
-    launches, lib = kcam.camera_rays_cuda.launches, loader.lib
+    launches, lib = loader.launches, loader.lib
     monkeypatch.setattr(kcam, "cuda_library", refuse)
     monkeypatch.setattr(native, "build_shared_library", refuse)
     for cam, w, h, jit in camera_cases()[-12:]:
         generate_rays(cam, w, h, jitter=jit, device="cpu")
-    assert kcam.camera_rays_cuda.launches == launches
+    assert loader.launches == launches
     assert loader.lib is lib    # None unless a card test loaded it
     with pytest.raises(ValueError, match="CUDA"):
         kcam.camera_rays_cuda(4, 3, False, (0, 0, 0), np.eye(3), (0.5, 0.5),

@@ -39,6 +39,7 @@ from messyerraytracer_tpu_torch.kernels.cluster_tlas import (  # noqa: E402
 )
 from messyerraytracer_tpu_torch.kernels.traverse_pallas import (  # noqa
     cast_rays_wide,
+    cuda_library,
     wide_cast,
     wide_cast_cuda,
     wide_cast_plain,
@@ -136,11 +137,11 @@ def test_routing_never_falls_back(mid_tris):
     ws = pscene.build_scene_from_tri_array(tris[:300], backend="pallas",
                                            device="cpu").wide
     rays = port_rays(*rand_rays_np(64, seed=44))
-    before = wide_cast_cuda.launches
+    before = cuda_library.launches
     with pytest.raises(ValueError, match="CUDA tensors"):
         wide_cast_cuda(rays.origin, rays.direction, rays.t_min, rays.t_max,
                        ws)                          # CPU tensors: no fallback
-    assert wide_cast_cuda.launches == before
+    assert cuda_library.launches == before
     for a, b in zip(wide_cast(rays, ws),
                     wide_cast_plain(rays.origin, rays.direction, rays.t_min,
                                     rays.t_max, ws)):
@@ -324,11 +325,11 @@ def test_cuda_kernel_matches_plain(mid_tris):
                   (rays, wide(2), {})]             # ties: every tri twice
         for r, w, kw in cases:
             args = (r.origin, r.direction, r.t_min, r.t_max, w)
-            before = wide_cast_cuda.launches
+            before = cuda_library.launches
             k = wide_cast_cuda(*args, **kw)
             p = wide_cast_plain(*args, **kw)
             torch.cuda.synchronize()
-            assert wide_cast_cuda.launches == before + 1
+            assert cuda_library.launches == before + 1
             for a, b in zip(k, p):
                 assert torch.equal(a, b), kw
         # the warp-counting build: the same outputs, and lane counts that
