@@ -6,7 +6,8 @@ the port still builds and runs its main paths on the GPU.
 Builds the kernels from the checkout, each with its own nvcc started at
 the same time (B1: kernels/csrc/cluster_cast.cu, B4: kernels/csrc/
 wide_cast.cu, the refit kernel: kernels/csrc/tlas_refit.cu, the camera
-kernel: kernels/csrc/camera_rays.cu; nvcc -> ctypes), then:
+kernel: kernels/csrc/camera_rays.cu, the sort key kernel M1:
+kernels/csrc/morton_keys.cu; nvcc -> ctypes), then:
 
   1. holds kernel B1 against its plain PyTorch version on the card, bit
      for bit with every counter, on test-sized flat and instanced scenes
@@ -17,7 +18,11 @@ kernel: kernels/csrc/camera_rays.cu; nvcc -> ctypes), then:
      kernel against its plain version, on the card and on the CPU, bit
      for bit on both primary cells' frames (1920x1080 and 1024x768), and
      times it over CAMERA_ITERS launches beside its bound and the plain
-     version's time;
+     version's time; (1c) holds the sort key kernel M1 against its plain
+     version on the card, bit for bit, for each key kind at the service
+     batch's and the path-traced wave's sizes, and times it alone over
+     MORTON_ITERS launches beside its bound, its wrapper, the plain
+     version and the stable sort of int32 against int64 keys;
   2. drives the cluster main path at full size — the 1M-triangle instanced
      TLAS of the JAX package's bench.py headline (4 meshes, 215
      instances), one block-swizzled 1920x1080 frame through
@@ -155,12 +160,14 @@ from messyerraytracer_tpu_torch.kernels import (
     camera_rays,
     cluster_tlas,
     cluster_v2,
+    morton_keys,
     traverse_pallas,
 )
 
 # each kernel's library; its ``launches`` counts the kernel's launches
 B1, B4 = cluster_v2.cuda_library, traverse_pallas.cuda_library
 R1, C1 = cluster_tlas.cuda_library, camera_rays.cuda_library
+M1 = morton_keys.cuda_library
 
 FRAME = (1920, 1080)
 SLICE = 262_144        # rays of the frame held kernel == plain per layout
@@ -215,7 +222,7 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def build_kernels(card: str) -> None:
-    """Build the four kernel libraries, one nvcc each, started together."""
+    """Build the five kernel libraries, one nvcc each, started together."""
     t0 = time.time()
     errors = []
 
@@ -227,7 +234,7 @@ def build_kernels(card: str) -> None:
 
     threads = [threading.Thread(target=build, args=(m,))
                for m in (cluster_v2, traverse_pallas, cluster_tlas,
-                         camera_rays)]
+                         camera_rays, morton_keys)]
     for t in threads:
         t.start()
     for t in threads:
@@ -524,6 +531,80 @@ def phase_camera(card: str, device) -> dict:
               f"{CAMERA_ITERS}); bound {bound_ms} ms ({written} bytes, "
               f"{what}), alone at {100.0 * bound_ms / kernel_ms}% of it; "
               f"plain version {plain_ms} ms", flush=True)
+    return out
+
+
+MORTON_ITERS = 2000        # launches of the sort key kernel timed together
+MORTON_BYTES_PER_RAY = 28  # origin 12 and direction 12 read, a key 4 written
+MORTON_RAYS = (("service batch", 524_288), ("path-traced wave", 307_200))
+
+
+def phase_morton(card: str, device) -> dict:
+    """Phase 1c: the sort key kernel M1 against its plain version on the
+    card, bit for bit, for every key kind (octant-major at dir_bits 1 and
+    9, origin-major, direction), with and without live flags, on random
+    rays with dead and zero-direction rows at the service batch's and the
+    path-traced wave's sizes; one launch a call.  Then timed, each fenced
+    by CUDA events: the kernel alone (its C entry on a key tensor
+    allocated once) and ``sort_keys_6d`` (wrapper and allocation) over
+    MORTON_ITERS launches, the plain version over 20 calls, and the
+    stable sort of the int32 keys and of the same keys in int64 over 200.
+    The bound is the bytes a ray's key reads and writes, once.  Returns
+    {rays: (kernel ms, call ms, plain ms, bound ms, int32 sort ms, int64
+    sort ms)}."""
+    import torch
+
+    from messyerraytracer_tpu_torch.dispatch import morton as pm
+
+    km, out = morton_keys, {}
+    for name, n in MORTON_RAYS:
+        rays = random_rays(n, 31 + n, 40.0, device)
+        lo = torch.tensor([-30.0, 0.0, -30.0], device=device)
+        hi = torch.tensor([30.0, 5.0, 30.0], device=device)
+        live = rays.t_max > rays.t_min
+        for kind, b in ((km.OCTANT_MAJOR, 1), (km.OCTANT_MAJOR, 9),
+                        (km.ORIGIN_MAJOR, 1), (km.DIRECTION, 1)):
+            for flags in (None, live):
+                before = M1.launches
+                got = km.morton_keys_cuda(rays.origin, rays.direction, lo,
+                                          hi, kind, b, flags)
+                check(M1.launches == before + 1, f"M1 {name}: one launch")
+                if kind == km.DIRECTION:
+                    want = pm._ray_direction_morton(rays.direction)
+                else:
+                    want = pm._keys_6d(rays, lo, hi,
+                                       kind == km.OCTANT_MAJOR, b)
+                if flags is not None:
+                    want = torch.where(flags, want,
+                                       torch.full_like(want, pm.DEAD_KEY))
+                check(torch.equal(got, want.to(torch.int32)),
+                      f"M1 {name} kind {kind} dir_bits {b} live "
+                      f"{flags is not None} == plain bit for bit")
+        keys = torch.empty((n,), dtype=torch.int32, device=device)
+        args = [n, km.OCTANT_MAJOR, 1, rays.origin.data_ptr(),
+                rays.direction.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                None, keys.data_ptr()]
+        lib = M1()
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_ms = cuda_ms(lambda: lib.mrt_morton_keys(*args, stream),
+                            MORTON_ITERS)
+        call_ms = cuda_ms(lambda: pm.sort_keys_6d(rays, lo, hi),
+                          MORTON_ITERS)
+        plain_ms = cuda_ms(lambda: pm._keys_6d(rays, lo, hi), 20)
+        wide = keys.to(torch.int64)
+        sort32_ms = cuda_ms(lambda: torch.sort(keys, stable=True), 200)
+        sort64_ms = cuda_ms(lambda: torch.sort(wide, stable=True), 200)
+        moved = MORTON_BYTES_PER_RAY * n
+        bound_ms, what = bound(moved, 0)
+        out[name] = (kernel_ms, call_ms, plain_ms, bound_ms, sort32_ms,
+                     sort64_ms)
+        print(f"[{card}] phase 1c M1 {name} ({n} rays): kernel == plain "
+              f"bit for bit (4 kinds, live and not); alone {kernel_ms} ms "
+              f"a launch, sort_keys_6d {call_ms} ms a call (CUDA events "
+              f"over {MORTON_ITERS}); bound {bound_ms} ms ({moved} bytes, "
+              f"{what}), alone at {100.0 * bound_ms / kernel_ms}% of it; "
+              f"plain version {plain_ms} ms; stable sort int32 {sort32_ms} "
+              f"ms, int64 {sort64_ms} ms", flush=True)
     return out
 
 
@@ -2588,6 +2669,7 @@ def main() -> int:
     build_kernels(card)
     phase_kernel_vs_plain(card, device)
     cam_ms = phase_camera(card, device)
+    key_ms = phase_morton(card, device)
     k1, ctx = phase_main_path(card, device)
     phase_wide_vs_plain(card, device)
     k4 = phase_pallas_path(card, device, ctx)
@@ -2646,6 +2728,15 @@ def main() -> int:
          "ms": {k: v[0] for k, v in cam_ms.items()},
          "plain_ms": {k: v[2] for k, v in cam_ms.items()},
          "bound_ms": {k: v[3] for k, v in cam_ms.items()},
+         "bound_by": "bytes"},
+        {"name": "morton_keys (M1: one thread a ray, every step in "
+                 "registers)", "route": "cuda",
+         "source": src + "morton_keys.cu",
+         "replaces": "none (messyerraytracer_tpu/dispatch/morton.py is "
+                     "jnp)",
+         "ms": {k: v[0] for k, v in key_ms.items()},
+         "plain_ms": {k: v[2] for k, v in key_ms.items()},
+         "bound_ms": {k: v[3] for k, v in key_ms.items()},
          "bound_by": "bytes"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

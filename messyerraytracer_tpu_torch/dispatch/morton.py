@@ -2,17 +2,21 @@
 swizzle for coherent primary rays.
 
 PyTorch counterpart of the JAX package's dispatch/morton.py: the same bit
-spread, quantization and keys, bit for bit.  Keys are computed in int64
-(every key fits in 31 bits; the wider type keeps the shifts of the two-pass
-key in the dispatcher from overflowing) and returned as int32 where the JAX
-functions return int32.  The sort is ``torch.sort(..., stable=True)``, the
+spread, quantization and keys, bit for bit.  The sort keys of rays on a
+card (``sort_perm_6d``, ``sort_rays_6d``, ``sort_rays_by_direction``,
+``ray_6d_morton``, ``ray_direction_morton``) are one launch of kernel M1
+(``kernels/morton_keys.py``); elsewhere the plain versions (``_keys_6d``,
+``_ray_6d_morton``, ``_ray_direction_morton``) compute them in int64 (the
+wider type keeps the shifts of the two-pass key in the dispatcher from
+overflowing).  Both give the same keys, as int32: every key fits in 31
+bits.  The sort is ``torch.sort(..., stable=True)`` of the int32 keys, the
 counterpart of the JAX package's stable ``jnp.argsort``; permutations are
 int64 index tensors with ``sorted[i] = rays[perm[i]]``.
 
 The key, sort, gather and unshuffle steps run inside ``torch.profiler``
 ranges named ``morton.key``, ``morton.sort``, ``morton.gather`` and
 ``morton.unshuffle``, so a profile of any caller splits its device time by
-step.
+step; M1's launch is the span ``key.launch`` inside ``morton.key``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.types import Hits, Rays
+from ..kernels import morton_keys as m1
 from ..utils.trace import span
 
 DEAD_KEY = 0x7FFFFFFF   # sort key of a dead ray: above every live key
@@ -55,9 +60,24 @@ def _unit_box(origin: torch.Tensor, lo, hi) -> torch.Tensor:
     return (origin - lo) / torch.clamp_min(hi - lo, 1e-12)
 
 
+def _box(lo, hi, dev: torch.device) -> tuple:
+    """``lo``, ``hi`` as float32 tensors on ``dev``; tensors that already
+    are (the BVH root's device rows) pass unchanged, with no copy."""
+    return tuple(torch.as_tensor(b, dtype=torch.float32, device=dev)
+                 for b in (lo, hi))
+
+
 def ray_direction_morton(direction: torch.Tensor) -> torch.Tensor:
     """(N,) int32 Morton keys from direction vectors, [-1,1]^3 ->
-    [0,1023]^3."""
+    [0,1023]^3: on a card one launch of kernel M1, elsewhere the plain
+    version."""
+    if direction.is_cuda:
+        return m1.morton_keys_cuda(None, direction, None, None, m1.DIRECTION)
+    return _ray_direction_morton(direction)
+
+
+def _ray_direction_morton(direction: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``ray_direction_morton``."""
     q = _quantize((direction + 1.0) * 0.5, 1023.0)
     return morton_encode_3d(q[:, 0], q[:, 1], q[:, 2]).to(torch.int32)
 
@@ -78,13 +98,25 @@ def ray_6d_morton(origin: torch.Tensor, direction: torch.Tensor,
                   lo, hi) -> torch.Tensor:
     """Origin-major 6D coherence key (int32): 27-bit origin Morton (9
     bits/axis over the scene AABB) with the 3-bit direction octant as the
-    minor bits."""
+    minor bits.  On a card one launch of kernel M1, elsewhere the plain
+    version."""
+    if direction.is_cuda:
+        return m1.morton_keys_cuda(origin, direction,
+                                   *_box(lo, hi, direction.device),
+                                   m1.ORIGIN_MAJOR)
+    return _ray_6d_morton(origin, direction, lo, hi)
+
+
+def _ray_6d_morton(origin: torch.Tensor, direction: torch.Tensor,
+                   lo, hi) -> torch.Tensor:
+    """The plain version of ``ray_6d_morton``."""
     q = _quantize(_unit_box(origin, lo, hi), 511.0)
     okey = morton_encode_3d(q[:, 0], q[:, 1], q[:, 2])
     return ((okey << 3) | _octant(direction)).to(torch.int32)
 
 
 def _stable_argsort(keys: torch.Tensor) -> torch.Tensor:
+    """The stable sort permutation of the int32 ``keys``."""
     with span("morton.sort"):
         return torch.sort(keys, stable=True).indices
 
@@ -102,8 +134,10 @@ def sort_rays_6d(rays: Rays, lo, hi, octant_major: bool = True,
                  dir_bits: int = 1) -> tuple[Rays, torch.Tensor]:
     """Stable-sort rays by the 6D key (incoherent batches): octant-major
     (``dir_bits`` direction Morton bits per axis above the origin Morton
-    bits) by default, origin-major with the octant minor otherwise.
-    Returns (sorted_rays, perm) with ``sorted[i] = rays[perm[i]]``."""
+    bits, 1..9; another raises ``ValueError``) by default, origin-major
+    with the octant minor otherwise; the keys are int32, on a card one
+    launch of kernel M1.  Returns (sorted_rays, perm) with ``sorted[i] =
+    rays[perm[i]]``."""
     perm = sort_perm_6d(rays, lo, hi, octant_major=octant_major,
                         dir_bits=dir_bits)
     return apply_permutation(rays, perm), perm
@@ -116,19 +150,36 @@ def sort_perm_6d(rays: Rays, lo, hi, octant_major: bool = True,
 
     ``live`` (bool (N,), optional): dead rays get ``DEAD_KEY``, above every
     live key (< 2^28), so the stable sort puts them at the end in their
-    input order."""
+    input order.  ``dir_bits`` is 1..9; another raises ``ValueError``."""
     with span("morton.key"):
-        keys = _keys_6d(rays, lo, hi, octant_major, dir_bits)
-        if live is not None:
-            with span("key.merge"):
-                keys = torch.where(live, keys,
-                                   torch.full_like(keys, DEAD_KEY))
+        keys = sort_keys_6d(rays, lo, hi, octant_major, dir_bits, live)
     return _stable_argsort(keys)
+
+
+def sort_keys_6d(rays: Rays, lo, hi, octant_major: bool = True,
+                 dir_bits: int = 1, live=None) -> torch.Tensor:
+    """The (N,) int32 sort keys of ``sort_perm_6d``: on a card one launch
+    of kernel M1, which reads ``lo`` and ``hi`` on the card (pass the box's
+    device rows, or they are copied there first); elsewhere the plain
+    version ``_keys_6d``."""
+    if rays.direction.is_cuda:
+        return m1.morton_keys_cuda(
+            rays.origin, rays.direction,
+            *_box(lo, hi, rays.direction.device),
+            m1.OCTANT_MAJOR if octant_major else m1.ORIGIN_MAJOR,
+            dir_bits, live)
+    keys = _keys_6d(rays, lo, hi, octant_major, dir_bits)
+    if live is not None:
+        with span("key.merge"):
+            keys = torch.where(live, keys, torch.full_like(keys, DEAD_KEY))
+    return keys.to(torch.int32)
 
 
 def _keys_6d(rays: Rays, lo, hi, octant_major: bool = True,
              dir_bits: int = 1) -> torch.Tensor:
-    """The int64 sort keys of ``sort_perm_6d`` (live rays only)."""
+    """The int64 sort keys of ``sort_perm_6d`` (live rays only), the plain
+    version; ``dir_bits`` outside 1..9 raises ``ValueError``."""
+    m1.check_dir_bits(dir_bits)
     if octant_major:
         b = dir_bits
         qmax = (1 << b) - 1
@@ -144,8 +195,8 @@ def _keys_6d(rays: Rays, lo, hi, octant_major: bool = True,
         with span("key.merge"):
             keys = (dirm << minor) | (okey >> (27 - minor))
     else:
-        keys = ray_6d_morton(rays.origin, rays.direction, lo,
-                             hi).to(torch.int64)
+        keys = _ray_6d_morton(rays.origin, rays.direction, lo,
+                              hi).to(torch.int64)
     return keys
 
 

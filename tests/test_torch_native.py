@@ -250,7 +250,8 @@ def c_entry_types(source: str, entry: str) -> list:
 
 
 @pytest.mark.parametrize("module", ["cluster_v2", "traverse_pallas",
-                                    "cluster_tlas", "camera_rays"])
+                                    "cluster_tlas", "camera_rays",
+                                    "morton_keys"])
 def test_each_kernel_library_declares_its_c_entry(module):
     """Each kernel's library object names a source under kernels/csrc/
     and declares every C entry with the source's own parameter types, in
