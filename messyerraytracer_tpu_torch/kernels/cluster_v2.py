@@ -60,7 +60,7 @@ from ..core.types import (
     safe_inv_direction,
 )
 from ..native import CudaLibrary, check, check_rays, cuda_device
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .cluster import LOCAL_BITS, LOCAL_MASK, ClusterScene
 from .cluster_tlas import ClusterTLAS
 
@@ -387,7 +387,7 @@ def _hits_from_buffers_v2(fout, iout, rays: Rays):
 
 def _cast(rays, cs, query_mask, any_hit):
     """Kernel B1 and its hit assembly, inside the span ``cast`` (the
-    assembly in ``cast.hits``)."""
+    assembly in ``cast.hits``), and the counters ``b1.*``."""
     with span("cast"):
         fout, iout, counters = cluster_cast(rays, cs, query_mask, any_hit)
         with span("cast.hits"):
@@ -403,6 +403,10 @@ def _cast(rays, cs, query_mask, any_hit):
             hits=found.sum(),
             stack_drops=counters[1],
         )
+    count("b1.rays", rays.count)
+    count("b1.tri_tests", stats.tri_tests)
+    count("b1.pops", counters[0])
+    count("b1.stack_drops", counters[1])
     return hits, stats, found, tt, inst, nv
 
 
@@ -411,7 +415,10 @@ def cast_rays_cluster_v2(rays: Rays, cs: ClusterScene, query_mask: int = -1,
                          qd=None, popn=None, qroom=None, dmode=None,
                          probe: str = "", return_per_ray: bool = False,
                          nway=None):
-    """Closest-hit / any-hit cast over ``ClusterScene`` tables.
+    """Closest-hit / any-hit cast over ``ClusterScene`` tables.  While a
+    profiler records, adds the call's rays, triangle tests, node pops and
+    dropped stack pushes to the counters ``b1.rays``, ``b1.tri_tests``,
+    ``b1.pops`` and ``b1.stack_drops``.
 
     Returns (hits, stats, occluded[, {"tri_tests", "node_visits"}]).  The
     TPU schedule knobs (interpret, srows, qd, popn, qroom, dmode, nway)
@@ -433,7 +440,8 @@ def cast_rays_cluster_tlas_v2(rays: Rays, ct: ClusterTLAS,
     """Instanced cast over ``ClusterTLAS`` tables.  Returns (hits, stats,
     occluded, instance_id[, per_ray dict]); prim ids are in the flattened
     scene's numbering, instance_id is -1 on a miss.  The TPU schedule
-    knobs are accepted and ignored."""
+    knobs are accepted and ignored.  Adds to the counters ``b1.*`` as
+    ``cast_rays_cluster_v2`` does."""
     del interpret, srows, qd, popn, qroom, dmode, nway
     if not isinstance(ct, ClusterTLAS):
         raise TypeError("cast_rays_cluster_tlas_v2 needs a ClusterTLAS")

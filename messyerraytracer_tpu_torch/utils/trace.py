@@ -18,10 +18,11 @@ profiler records (``torch.autograd._profiler_enabled()``):
     one (kernels B1 and B4) is linked to no range, whatever runtime
     launched it; and it costs a seventh of the host time under the profiler
     (2.2 against 15-16 us a range on the host of an H100 machine);
-  * ``count(name, value)``: adds a Python int, or a 0-d tensor on its own
-    device (no sync), to a named counter; ``counters()`` reads them all
-    as Python numbers (one sync a device), ``reset()`` clears them and
-    the request log;
+  * ``count(name, value)``: adds a Python int to a named counter, or
+    holds a 0-d tensor for it as it is (no sync and no device work while
+    counting: the held tensors are summed when read); ``counters()``
+    reads them all as Python numbers (one sync a device), ``reset()``
+    clears them and the request log;
   * ``request_span(name, request_id)``: a span that also appends
     ``(request_id, name, start_ns, end_ns)`` to the request log, on
     ``time.time_ns()``, the clock of the profiler's own event times;
@@ -41,11 +42,13 @@ import time
 import torch
 
 REQUEST_LOG_MAX = 65536
+HELD_MAX = 4096     # held tensors of one counter and device before a sum
 
 _RANGE = torch._C._profiler._RecordFunctionFast
 _OFF = contextlib.nullcontext()
 _LOCK = threading.Lock()
-_COUNTERS: dict = {}
+_COUNTERS: dict = {}    # name -> Python number
+_HELD: dict = {}        # (name, device) -> 0-d tensors not yet summed
 _LOG: collections.deque = collections.deque(maxlen=REQUEST_LOG_MAX)
 
 
@@ -89,29 +92,32 @@ def request_span(name: str, request_id: int):
 
 
 def count(name: str, value) -> None:
-    """Add ``value`` (an int, or a 0-d tensor added on its device) to the
-    counter ``name`` while the profiler records."""
+    """Add ``value`` (an int, or a 0-d tensor, held and summed when read)
+    to the counter ``name`` while the profiler records."""
     if not recording():
         return
     with _LOCK:
-        prev = _COUNTERS.get(name)
-        _COUNTERS[name] = value if prev is None else prev + value
+        if not isinstance(value, torch.Tensor):
+            _COUNTERS[name] = _COUNTERS.get(name, 0) + value
+            return
+        held = _HELD.setdefault((name, value.device), [])
+        held.append(value)
+        if len(held) >= HELD_MAX:
+            held[:] = [torch.stack([v.reshape(()) for v in held]).sum()]
 
 
 def counters() -> dict:
-    """Every counter as a Python number; tensors are read in one transfer
-    a device."""
-    with _LOCK:
-        items = dict(_COUNTERS)
-    out = {k: v for k, v in items.items()
-           if not isinstance(v, torch.Tensor)}
+    """Every counter as a Python number; held tensors are read in one
+    transfer a device."""
     by_dev = collections.defaultdict(list)
-    for k, v in items.items():
-        if isinstance(v, torch.Tensor):
-            by_dev[v.device].append(k)
-    for keys in by_dev.values():
-        vals = torch.stack([items[k].reshape(()) for k in keys]).tolist()
-        out.update(zip(keys, vals))
+    with _LOCK:
+        out = dict(_COUNTERS)
+        for (name, dev), vs in _HELD.items():
+            by_dev[dev] += [(name, v) for v in vs]
+    for pairs in by_dev.values():
+        vals = torch.stack([v.reshape(()) for _, v in pairs]).tolist()
+        for (name, _), v in zip(pairs, vals):
+            out[name] = out.get(name, 0) + v
     return out
 
 
@@ -125,4 +131,5 @@ def reset() -> None:
     """Clear the counters and the request log."""
     with _LOCK:
         _COUNTERS.clear()
+        _HELD.clear()
         _LOG.clear()

@@ -288,6 +288,28 @@ def test_counters_add_ints_and_tensors():
     assert trace.counters() == {}
 
 
+def test_counted_tensors_are_held_not_added():
+    """A counted tensor is held as it is and summed only when the
+    counters are read: counting runs no tensor op."""
+    vals = [torch.tensor(k, dtype=torch.int64) for k in range(1, 6)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for v in vals:
+            trace.count("held", v)
+        trace.count("held", 10)
+    assert not [e.name for e in prof.events() if e.name.startswith("aten::")]
+    assert trace.counters() == {"held": 25}
+    assert [int(v) for v in vals] == [1, 2, 3, 4, 5]
+
+
+def test_held_tensors_are_summed_past_the_cap(monkeypatch):
+    monkeypatch.setattr(trace, "HELD_MAX", 3)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for k in range(1, 8):
+            trace.count("held", torch.tensor(k))
+    assert len(trace._HELD[("held", CPU)]) == 1    # 1+2+3, +4+5, +6+7
+    assert trace.counters() == {"held": 28}
+
+
 COMP = {"config": {"scene": {"ground_subdiv": 10, "sphere": 8, "boxes": 20}},
         "traffic": {"rays": 4096, "pool_batches": 2, "sample_rays": 1024,
                     "sample_units": 2, "width": 48, "height": 32}}
